@@ -1,0 +1,28 @@
+"""Hand-written Hopper kernels of the serving path, each beside its plain
+PyTorch version.
+
+  grouped_ffn       prefill's sorted expert FFN     (csrc/grouped_ffn.cu)
+  moe_ffn           a decode step's masked FFN      (csrc/moe_ffn.cu)
+  decode_attention  flash-decode GQA over the cache (csrc/decode_attn.cu)
+
+Nothing is compiled or loaded on import: the library is built at the
+first launch on a CUDA tensor (``kernels/build.py``).
+"""
+from repro_torch.kernels.decode_attn import (  # noqa: F401
+    decode_attention, decode_attention_plain,
+)
+from repro_torch.kernels.moe_ffn import (  # noqa: F401
+    grouped_ffn, grouped_ffn_plain, moe_ffn, moe_ffn_plain,
+)
+
+KERNELS = {"grouped_ffn": grouped_ffn, "moe_ffn": moe_ffn,
+           "decode_attention": decode_attention}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

@@ -1,0 +1,298 @@
+"""Model composition: embed -> decoder blocks -> head, for the dense and
+MoE families (the SSM, hybrid, VLM and audio families are not ported).
+
+Parameters are the JAX package's nested dict with the same keys and
+layouts; layer parameters are stacked on a leading L axis and the
+layers run as a Python loop over it. ``Model`` is the ``nn.Module`` that
+owns such a tree (device placement, ``.to``); the functions below take
+the tree itself.
+
+  forward      full sequence, no cache
+  prefill      full sequence, builds the decode cache
+  decode_step  T new tokens per row against the cache
+
+Cache writes (decode_step, insert_request, evict_slot) update the cache
+tensors in place — the JAX package returns new arrays; in place saves a
+copy of the whole cache per step — and return the cache dict.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.bridge import flatten, unflatten
+from repro_torch.configs.base import ArchConfig, XSharePolicy
+from repro_torch.models import attention as A
+from repro_torch.models.layers import mlp_apply, rms_norm
+from repro_torch.models.moe import OFF, moe_apply
+
+WINDOW_MARGIN = 512   # rolling-cache slack, as in the JAX package
+
+_FAMILIES = ("dense", "moe")
+
+
+def _check_family(cfg: ArchConfig) -> None:
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (have {_FAMILIES})")
+
+
+def params_to(params: Dict, device) -> Dict:
+    """The parameter tree on ``device`` (leaves already there are kept)."""
+    return {k: params_to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in params.items()}
+
+
+def layer_params(layers: Dict, i: int) -> Dict:
+    """Layer i's parameters (views into the stacked (L, ...) tensors)."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+def stack_aux(auxs) -> Dict:
+    """Per-layer (or per-step) aux dicts -> one dict of stacked tensors."""
+    auxs = [a for a in auxs if a]
+    if not auxs:
+        return {}
+    return {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]}
+
+
+class Model(nn.Module):
+    """Owns a parameter tree in the reference layouts as frozen
+    parameters; ``params`` gives the nested dict back (same tensors)."""
+
+    def __init__(self, cfg: ArchConfig, params: Dict):
+        super().__init__()
+        _check_family(cfg)
+        self.cfg = cfg
+        self._keys = list(flatten(params))
+        for key, t in flatten(params).items():
+            self.register_parameter(key.replace("/", "__"),
+                                    nn.Parameter(t, requires_grad=False))
+
+    @property
+    def params(self) -> Dict:
+        return unflatten({k: getattr(self, k.replace("/", "__"))
+                          for k in self._keys})
+
+    def forward(self, tokens: torch.Tensor, **kw):
+        return forward(self.cfg, self.params, tokens, **kw)
+
+
+# ---------------------------------------------------------- embed / head --
+
+def embed_tokens(cfg: ArchConfig, params: Dict,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    _check_family(cfg)
+    return params["embed"][tokens.long()]
+
+
+def lm_head_apply(cfg: ArchConfig, params: Dict,
+                  x: torch.Tensor) -> torch.Tensor:
+    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    logits = x @ table
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) \
+            >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+# ------------------------------------------------------------ block fns ---
+
+def _ffn_block(cfg: ArchConfig, lp: Dict, x: torch.Tensor,
+               policy: XSharePolicy, spec_shape, capacity,
+               capacity_factor: float,
+               token_mask: Optional[torch.Tensor] = None,
+               dispatch: str = "auto",
+               spec_priors: Optional[torch.Tensor] = None):
+    if cfg.family == "moe":
+        h = rms_norm(x, lp["moe_norm"], cfg.norm_eps)
+        y, aux = moe_apply(lp["moe"], h, cfg.moe, policy,
+                           spec_shape=spec_shape, capacity=capacity,
+                           capacity_factor=capacity_factor,
+                           token_mask=token_mask, dispatch=dispatch,
+                           spec_priors=spec_priors)
+        return x + y, aux
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + mlp_apply(lp["mlp"], h, cfg.act), {}
+
+
+def effective_window(cfg: ArchConfig, *,
+                     force_window: Optional[int] = None) -> Optional[int]:
+    if force_window is not None:
+        return force_window
+    return cfg.attn.sliding_window if cfg.attn else None
+
+
+# -------------------------------------------------------------- forward ---
+
+def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+            policy: XSharePolicy = OFF,
+            spec_shape: Optional[Tuple[int, int]] = None,
+            window: Optional[int] = None,
+            capacity: Optional[int] = None,
+            capacity_factor: float = 1.25,
+            dispatch: str = "auto"):
+    """Full-sequence forward. Returns (logits over all positions, aux)."""
+    x = embed_tokens(cfg, params, tokens)
+    B, T = x.shape[:2]
+    positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    win = window if window is not None else effective_window(cfg)
+    auxs = []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = A.qkv_project(lp["attn"], h, positions, cfg.attn,
+                                cfg.norm_eps)
+        a = A.flash_attention(q, k, v, causal=True, window=win)
+        x = x + a.reshape(B, T, -1) @ lp["attn"]["wo"]
+        x, aux = _ffn_block(cfg, lp, x, policy, spec_shape, capacity,
+                            capacity_factor, dispatch=dispatch)
+        auxs.append(aux)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head_apply(cfg, params, x), stack_aux(auxs)
+
+
+# ---------------------------------------------------------------- cache ---
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
+               force_window: Optional[int] = None,
+               device=None) -> Dict:
+    """Decode cache: per-slot ``cur_len`` (batch,) and KV of shape
+    (L, batch, C, Hkv, dh), C = cache_len (or window + margin)."""
+    _check_family(cfg)
+    win = effective_window(cfg, force_window=force_window)
+    C = (win + WINDOW_MARGIN) if win is not None else cache_len
+    a = cfg.attn
+    shape = (cfg.num_layers, batch, C, a.num_kv_heads, a.head_dim)
+    return {"cur_len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=device),
+            "kv_k": torch.zeros(shape, dtype=dtype, device=device),
+            "kv_v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def insert_request(cache: Dict, req_cache: Dict, slot: int,
+                   src: int = 0) -> Dict:
+    """Copy row ``src`` of a prefilled cache into row ``slot`` of the
+    running cache, whole sequence extent included (in place)."""
+    for k, v in cache.items():
+        if k == "cur_len":
+            v[slot] = req_cache[k][src].to(v.dtype)
+        else:
+            v[:, slot] = req_cache[k][:, src].to(v.dtype)
+    return cache
+
+
+def evict_slot(cache: Dict, slot: int, *, scrub: bool = False) -> Dict:
+    """Mark row ``slot`` free (cur_len = 0, in place). scrub=True also
+    zeroes the row's KV (numerics quarantine)."""
+    for k, v in cache.items():
+        if k == "cur_len":
+            v[slot] = 0
+        elif scrub:
+            v[:, slot] = 0
+    return cache
+
+
+# -------------------------------------------------------------- prefill ---
+
+def _build_cache_slice(k: torch.Tensor, C: int,
+                       win: Optional[int]) -> torch.Tensor:
+    """Full-sequence kv (B, S, Hkv, dh) -> a cache buffer (B, C, ...)."""
+    B, Ss = k.shape[0], k.shape[1]
+    buf = torch.zeros((B, C) + tuple(k.shape[2:]), dtype=k.dtype,
+                      device=k.device)
+    if win is None:
+        if Ss > C:
+            raise ValueError(f"prompt length {Ss} exceeds cache {C}")
+        buf[:, :Ss] = k
+        return buf
+    n = min(Ss, C)
+    slots = torch.arange(Ss - n, Ss, device=k.device) % C
+    buf[:, slots] = k[:, Ss - n:]
+    return buf
+
+
+def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+            cache_len: int,
+            policy: XSharePolicy = OFF,
+            force_window: Optional[int] = None,
+            cache_dtype=None,
+            capacity_factor: float = 1.25,
+            dispatch: str = "auto"):
+    """Process the prompt and build the decode cache. tokens: (B, S).
+    Returns (last-position logits (B, V), cache, aux)."""
+    x = embed_tokens(cfg, params, tokens)
+    B, T = x.shape[:2]
+    positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
+    win = effective_window(cfg, force_window=force_window)
+    C = (win + WINDOW_MARGIN) if win is not None else cache_len
+    cdt = cache_dtype or x.dtype
+    cache = init_cache(cfg, B, cache_len, cdt, force_window=force_window,
+                       device=x.device)
+    cache["cur_len"].fill_(T)
+    auxs = []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        hn = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = A.qkv_project(lp["attn"], hn, positions, cfg.attn,
+                                cfg.norm_eps)
+        a = A.flash_attention(q, k, v, causal=True, window=win)
+        x = x + a.reshape(B, T, -1) @ lp["attn"]["wo"]
+        x, aux = _ffn_block(cfg, lp, x, policy, None, None,
+                            capacity_factor, dispatch=dispatch)
+        auxs.append(aux)
+        cache["kv_k"][i] = _build_cache_slice(k, C, win).to(cdt)
+        cache["kv_v"][i] = _build_cache_slice(v, C, win).to(cdt)
+    x_last = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    logits = lm_head_apply(cfg, params, x_last)[:, 0]
+    return logits, cache, stack_aux(auxs)
+
+
+# ---------------------------------------------------------------- decode --
+
+def decode_step(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
+                cache: Dict, *,
+                policy: XSharePolicy = OFF,
+                spec_shape: Optional[Tuple[int, int]] = None,
+                force_window: Optional[int] = None,
+                capacity_factor: float = 2.0,
+                active: Optional[torch.Tensor] = None,
+                dispatch: str = "auto",
+                spec_priors: Optional[torch.Tensor] = None):
+    """T new tokens per row against the cache. tokens: (B, T).
+
+    active: optional (B,) bool compute mask — False rows are left out of
+    MoE routing and its aux metrics; their logits are garbage the caller
+    ignores.
+
+    Returns (logits (B, T, V), cache with cur_len advanced by T, aux);
+    the KV tensors are updated in place."""
+    x = embed_tokens(cfg, params, tokens)
+    B, T = x.shape[:2]
+    cur = cache["cur_len"]
+    positions = cur.reshape(-1, 1) + torch.arange(T, device=x.device)[None]
+    win = effective_window(cfg, force_window=force_window)
+    token_mask = None if active is None else active[:, None].expand(B, T)
+    auxs = []
+    for i in range(cfg.num_layers):
+        lp = layer_params(params["layers"], i)
+        ck, cv = cache["kv_k"][i], cache["kv_v"][i]
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = A.qkv_project(lp["attn"], h, positions, cfg.attn,
+                                cfg.norm_eps)
+        A.update_cache(ck, k, cur, window=win)
+        A.update_cache(cv, v, cur, window=win)
+        a = A.cached_attention(q, ck, cv, cur, window=win)
+        x = x + a.reshape(B, T, -1) @ lp["attn"]["wo"]
+        x, aux = _ffn_block(cfg, lp, x, policy, spec_shape, None,
+                            capacity_factor, token_mask, dispatch,
+                            spec_priors)
+        auxs.append(aux)
+    new_cache = dict(cache)
+    new_cache["cur_len"] = cur + T
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return lm_head_apply(cfg, params, x), new_cache, stack_aux(auxs)

@@ -1,0 +1,110 @@
+"""The hand-written CUDA kernels against their plain versions on a GPU,
+at small and awkward shapes (ragged tiles, widths that are not a
+multiple of the block, lengths of 0). Marked ``gpu``: they skip where
+there is no CUDA device. Run them on a GPU machine with
+
+    python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+
+(--noconftest: the suite's conftest imports JAX, which such a machine
+need not have). Tolerances are tests/test_kernels.py's."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def rand(g, shape, dtype, scale=1.0):
+    return (torch.randn(shape, generator=g) * scale).to(dtype)
+
+
+def check(out, ref, dtype):
+    torch.testing.assert_close(out.float().cpu(), ref.float().cpu(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,E,f,k", [(8, 64, 4, 128, 2),
+                                       (32, 128, 6, 96, 2),
+                                       (300, 96, 8, 80, 3)])
+def test_grouped_ffn_kernel(cuda, dtype, T, d, E, f, k):
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import topk_route
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+    g = torch.Generator().manual_seed(T)
+    x = rand(g, (T, d), dtype).to(cuda)
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.05).to(cuda) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.05).to(cuda)
+    idx, w = topk_route(rand(g, (T, E), torch.float32).to(cuda), k)
+    plan = dispatch_plan(idx, w, E)
+    xs = gather_tokens(x, plan)
+    before = K.grouped_ffn.launches
+    out = K.grouped_ffn(xs, w1, w3, w2, plan.tile_eid, plan.tile_valid,
+                        block_t=plan.block_t)
+    assert K.grouped_ffn.launches == before + 1
+    ref = K.grouped_ffn_plain(xs, w1, w3, w2, plan.tile_eid,
+                              plan.tile_valid, block_t=plan.block_t)
+    check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,E,f,n_act,max_active", [
+    (1, 64, 4, 128, 2, 2), (8, 1024, 32, 512, 12, 16), (17, 96, 6, 80, 6, 6),
+    (32, 128, 8, 64, 0, 3)])
+def test_moe_ffn_kernel(cuda, dtype, T, d, E, f, n_act, max_active):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(T + E)
+    x = rand(g, (T, d), dtype).to(cuda)
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.05).to(cuda) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.05).to(cuda)
+    active = torch.zeros(E, dtype=torch.bool)
+    active[torch.randperm(E, generator=g)[:n_act]] = True
+    combine = torch.rand((T, E), generator=g) * active[None]
+    active, combine = active.to(cuda), combine.to(cuda)
+    out = K.moe_ffn(x, w1, w3, w2, combine, active, max_active=max_active)
+    ref = K.moe_ffn_plain(x, w1, w3, w2, combine, active)
+    check(out, ref, dtype)
+    again = K.moe_ffn(x, w1, w3, w2, combine, active,
+                      max_active=max_active)
+    assert torch.equal(out, again), "moe_ffn must be deterministic"
+
+
+def test_moe_ffn_refuses_more_than_32_tokens(cuda):
+    from repro_torch import kernels as K
+    x = torch.zeros((33, 64), device=cuda)
+    w = torch.zeros((2, 64, 64), device=cuda)
+    with pytest.raises(ValueError):
+        K.moe_ffn(x, w, w, w, torch.zeros((33, 2), device=cuda),
+                  torch.ones(2, dtype=torch.bool, device=cuda),
+                  max_active=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,Hkv,dh,S", [(2, 8, 2, 64, 256),
+                                          (3, 4, 4, 32, 100),
+                                          (1, 16, 2, 128, 1024),
+                                          (2, 4, 1, 64, 64),
+                                          (8, 16, 8, 64, 512)])
+def test_decode_attention_kernel(cuda, dtype, B, H, Hkv, dh, S):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(B * S)
+    q = rand(g, (B, H, dh), dtype).to(cuda)
+    k = rand(g, (B, S, Hkv, dh), dtype).to(cuda)
+    v = rand(g, (B, S, Hkv, dh), dtype).to(cuda)
+    lengths = torch.randint(0, S + 1, (B,), generator=g)
+    lengths[0] = 0
+    lengths = lengths.to(cuda)
+    out = K.decode_attention(q, k, v, lengths)
+    ref = K.decode_attention_plain(q, k, v, lengths)
+    assert float(out[0].float().abs().max()) == 0.0
+    check(out, ref, dtype)

@@ -1,0 +1,234 @@
+"""The port's kernel modules on the CPU: each kernel's plain PyTorch
+version against the JAX package's kernel (Pallas in interpret mode) on
+the same inputs, with the sweeps of tests/test_kernels.py.
+
+Tolerances are those of tests/test_kernels.py: 2e-5 in f32, 2e-2 in
+bf16 (atol = rtol). The CUDA kernels themselves run only on a GPU
+(tests/test_torch_gpu.py, chip_smoke.py)."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.ops import flash_decode, xshare_moe_ffn  # noqa: E402
+from repro.models.dispatch import sorted_expert_ffn as j_sorted  # noqa: E402
+from repro_torch import kernels as K  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models.dispatch import (dispatch_plan,  # noqa: E402
+                                         sorted_expert_ffn)
+
+DTYPES = {"f32": (jnp.float32, torch.float32, 2e-5),
+          "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+
+
+def both(a, name):
+    """One f32 numpy array as the same values in JAX and in torch."""
+    jdt, tdt, _ = DTYPES[name]
+    return jnp.asarray(a, jdt), torch.tensor(a).to(tdt)
+
+
+def close(t, j, name):
+    tol = DTYPES[name][2]
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(j, np.float32),
+                               atol=tol, rtol=tol)
+
+
+def ffn_weights(rng, E, d, f):
+    return [(rng.standard_normal(s) * 0.05).astype(np.float32)
+            for s in ((E, d, f), (E, d, f), (E, f, d))]
+
+
+def topk_routing(rng, T, E, k):
+    logits = rng.standard_normal((T, E)).astype(np.float32)
+    idx = np.argsort(-logits, axis=1, kind="stable")[:, :k]
+    top = np.take_along_axis(logits, idx, 1)
+    w = np.exp(top - top.max(1, keepdims=True))
+    return idx.astype(np.int32), (w / w.sum(1, keepdims=True)).astype(
+        np.float32)
+
+
+# ----------------------------------------------------------- moe_ffn ------
+
+@pytest.mark.parametrize("T,d,E,f,blockf", [
+    (8, 64, 4, 128, 64), (16, 128, 8, 256, 128), (4, 32, 16, 64, 64),
+    (32, 128, 6, 96, 32),
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_moe_ffn_plain_matches_jax_kernel(T, d, E, f, blockf, dt):
+    rng = np.random.default_rng(T + E)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    w1, w3, w2 = ffn_weights(rng, E, d, f)
+    idx, w = topk_routing(rng, T, E, 2)
+    combine = np.zeros((T, E), np.float32)
+    np.put_along_axis(combine, idx, w, 1)
+    n_act = max(1, E // 2)
+    active = np.zeros(E, bool)
+    active[rng.permutation(E)[:n_act]] = True
+    combine = np.where(active[None], combine, 0.0).astype(np.float32)
+    (jx, tx), (j1, t1), (j3, t3), (j2, t2) = [both(a, dt)
+                                              for a in (x, w1, w3, w2)]
+    ref = xshare_moe_ffn(jx, j1, j3, j2, jnp.asarray(combine),
+                         jnp.asarray(active), max_active=n_act + 1,
+                         block_f=blockf)
+    out = K.moe_ffn(tx, t1, t3, t2, torch.tensor(combine),
+                    torch.tensor(active), max_active=n_act + 1)
+    assert out.dtype == tx.dtype and out.shape == (T, d)
+    close(out, ref, dt)
+
+
+def test_moe_ffn_all_inactive_is_zero():
+    rng = np.random.default_rng(0)
+    T, d, E, f = 4, 32, 4, 64
+    x = torch.tensor(rng.standard_normal((T, d)), dtype=torch.float32)
+    w1, w3, w2 = [torch.tensor(a) for a in ffn_weights(rng, E, d, f)]
+    out = K.moe_ffn(x, w1, w3, w2, torch.zeros((T, E)),
+                    torch.zeros(E, dtype=torch.bool), max_active=2)
+    assert float(out.abs().max()) == 0.0
+
+
+# ------------------------------------------------- grouped (sorted) -------
+
+@pytest.mark.parametrize("T,d,E,f,blockf,k", [
+    (8, 64, 4, 128, 64, 2), (16, 128, 8, 256, 128, 1),
+    (32, 128, 6, 96, 32, 2),
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_grouped_ffn_plain_matches_jax_kernel(T, d, E, f, blockf, k, dt):
+    """The port's sorted pipeline (grouped_ffn's plain version on the
+    CPU) against the JAX pipeline through the Pallas grouped_ffn."""
+    rng = np.random.default_rng(T * E + k)
+    x = rng.standard_normal((T, d)).astype(np.float32)
+    w1, w3, w2 = ffn_weights(rng, E, d, f)
+    idx, w = topk_routing(rng, T, E, k)
+    (jx, tx), (j1, t1), (j3, t3), (j2, t2) = [both(a, dt)
+                                              for a in (x, w1, w3, w2)]
+    ref = j_sorted(jx, j1, j3, j2, jnp.asarray(idx), jnp.asarray(w),
+                   use_kernel=True, block_f=blockf)
+    out = sorted_expert_ffn(tx, t1, t3, t2, torch.tensor(idx),
+                            torch.tensor(w))
+    assert out.dtype == tx.dtype
+    close(out, ref, dt)
+
+
+def test_grouped_ffn_empty_experts_zero_tiles():
+    """All-dropped routing: no valid tile, zero output."""
+    rng = np.random.default_rng(0)
+    T, d, E, f = 8, 32, 4, 64
+    x = torch.tensor(rng.standard_normal((T, d)), dtype=torch.float32)
+    w1, w3, w2 = [torch.tensor(a) for a in ffn_weights(rng, E, d, f)]
+    idx = torch.full((T, 1), -1, dtype=torch.int32)
+    w = torch.zeros((T, 1))
+    assert int(dispatch_plan(idx, w, E).tile_valid.sum()) == 0
+    out = sorted_expert_ffn(x, w1, w3, w2, idx, w)
+    assert float(out.abs().max()) == 0.0
+
+
+def test_grouped_ffn_invalid_tiles_emit_zeros():
+    """The plain version honours tile_valid even for non-zero rows."""
+    rng = np.random.default_rng(1)
+    P, d, E, f, bt = 32, 16, 3, 32, 8
+    xs = torch.tensor(rng.standard_normal((P, d)), dtype=torch.float32)
+    w1, w3, w2 = [torch.tensor(a) for a in ffn_weights(rng, E, d, f)]
+    eid = torch.tensor([0, 2, 1, 0], dtype=torch.int32)
+    valid = torch.tensor([1, 1, 0, 0], dtype=torch.int32)
+    ys = K.grouped_ffn(xs, w1, w3, w2, eid, valid, block_t=bt)
+    assert float(ys[16:].abs().max()) == 0.0
+    assert float(ys[:16].abs().max()) > 0.0
+
+
+# ------------------------------------------------------- decode_attn ------
+
+@pytest.mark.parametrize("B,H,Hkv,dh,S,bs", [
+    (2, 8, 2, 64, 256, 64), (3, 4, 4, 32, 100, 32),
+    (1, 16, 2, 128, 1024, 256), (2, 4, 1, 64, 64, 16),
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_plain_matches_jax_kernel(B, H, Hkv, dh, S, bs, dt):
+    rng = np.random.default_rng(B * S)
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    lengths = rng.integers(1, S + 1, size=B).astype(np.int32)
+    (jq, tq), (jk, tk), (jv, tv) = [both(a, dt) for a in (q, k, v)]
+    ref = flash_decode(jq, jk, jv, jnp.asarray(lengths), block_s=bs)
+    out = K.decode_attention(tq, tk, tv, torch.tensor(lengths))
+    close(out, ref, dt)
+
+
+def test_decode_attention_length_masking():
+    """Positions past a row's length do not influence its output."""
+    rng = np.random.default_rng(0)
+    B, H, Hkv, dh, S = 1, 4, 2, 32, 64
+    q = torch.tensor(rng.standard_normal((B, H, dh)), dtype=torch.float32)
+    k = torch.tensor(rng.standard_normal((B, S, Hkv, dh)),
+                     dtype=torch.float32)
+    v = torch.tensor(rng.standard_normal((B, S, Hkv, dh)),
+                     dtype=torch.float32)
+    lengths = torch.tensor([17])
+    out1 = K.decode_attention(q, k, v, lengths)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 17:] = 99.0
+    v2[:, 17:] = -99.0
+    out2 = K.decode_attention(q, k2, v2, lengths)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-6)
+
+
+def test_decode_attention_zero_length_gives_zeros_like_jax():
+    """A row of length 0: zeros, not NaN, as the Pallas kernel gives."""
+    rng = np.random.default_rng(3)
+    B, H, Hkv, dh, S = 2, 4, 2, 32, 32
+    q = rng.standard_normal((B, H, dh)).astype(np.float32)
+    k = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    v = rng.standard_normal((B, S, Hkv, dh)).astype(np.float32)
+    lengths = np.array([0, 5], np.int32)
+    ref = flash_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       jnp.asarray(lengths), block_s=16)
+    out = K.decode_attention(torch.tensor(q), torch.tensor(k),
+                             torch.tensor(v), torch.tensor(lengths))
+    assert float(out[0].abs().max()) == 0.0
+    close(out, ref, "f32")
+
+
+# ------------------------------------------------------------ wrappers ----
+
+def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
+    """On the CPU a wrapper takes its plain version without building or
+    loading anything and without counting a launch."""
+    def no_lib():
+        raise AssertionError("the CPU path must not load the kernels")
+    monkeypatch.setattr(build, "lib", no_lib)
+    K.reset_launch_counts()
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.standard_normal((4, 16)), dtype=torch.float32)
+    w1, w3, w2 = [torch.tensor(a) for a in ffn_weights(rng, 2, 16, 32)]
+    K.moe_ffn(x, w1, w3, w2, torch.ones((4, 2)),
+              torch.ones(2, dtype=torch.bool), max_active=2)
+    K.grouped_ffn(x, w1, w3, w2, torch.zeros(1, dtype=torch.int32),
+                  torch.ones(1, dtype=torch.int32), block_t=4)
+    q = torch.zeros((1, 2, 32))
+    kv = torch.zeros((1, 8, 1, 32))
+    K.decode_attention(q, kv, kv, torch.tensor([3]))
+    assert K.launch_counts() == {"grouped_ffn": 0, "moe_ffn": 0,
+                                 "decode_attention": 0}
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """Only CPU tensors take the plain version; a tensor on any other
+    device without a kernel raises instead of computing silently."""
+    q = torch.zeros((1, 2, 32), device="meta")
+    kv = torch.zeros((1, 8, 1, 32), device="meta")
+    with pytest.raises(ValueError):
+        K.decode_attention(q, kv, kv, torch.tensor([3]))
+    x = torch.zeros((4, 16), device="meta")
+    w = torch.zeros((2, 16, 32), device="meta")
+    with pytest.raises(ValueError):
+        K.moe_ffn(x, w, w, w.transpose(1, 2), torch.ones((4, 2)),
+                  torch.ones(2, dtype=torch.bool), max_active=2)
+    with pytest.raises(ValueError):
+        K.grouped_ffn(x, w, w, w.transpose(1, 2),
+                      torch.zeros(1, dtype=torch.int32),
+                      torch.ones(1, dtype=torch.int32), block_t=4)
