@@ -20,7 +20,8 @@ Phases (any failure exits non-zero before the last line is printed):
                 weights from a seed: Engine.generate serves 8 requests
                 of 128 prompt tokens, 32 new tokens each, under XShare
                 policy off and batch; continuous equals lockstep, and
-                every kernel's launch counter grew during this phase.
+                every kernel was launched during each policy's continuous
+                run (counters set to 0 just before it, read just after).
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -73,16 +74,13 @@ def gpu_name_power() -> str:
 # ------------------------------------------------------------ timing ---
 
 _FLUSH = None
-_DEV = torch.device("cuda")
+CUDA = torch.device("cuda")
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3):
     """Median time of one call in ms (CUDA events), the L2 cache flushed
-    before each call so weights and KV come from device memory. None
-    when the phase runs on the CPU (a rehearsal of the script's logic)."""
+    before each call so weights and KV come from device memory."""
     global _FLUSH
-    if _DEV.type != "cuda":
-        return None
     if _FLUSH is None:
         _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
@@ -98,11 +96,6 @@ def time_ms(fn, iters: int = 20, warmup: int = 3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
-
-
-def sync():
-    if _DEV.type == "cuda":
-        torch.cuda.synchronize()
 
 
 def bound_ms(nbytes: float, flops: float, dtype):
@@ -135,7 +128,7 @@ def kernel_cases(cfg):
     from repro_torch.models.dispatch import dispatch_plan, gather_tokens
     from repro_torch.models.moe import OFF, policy_max_active, route
 
-    dev = _DEV
+    dev = CUDA
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
     d, E, f, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert, \
@@ -165,7 +158,10 @@ def kernel_cases(cfg):
         n_rows = int(plan.counts.sum())
         occupied = int(torch.unique(plan.tile_eid[plan.tile_valid > 0])
                        .numel())
-        nbytes = (2 * xs.numel() * sz + occupied * 3 * d * f * sz
+        # the function reads only the rows of valid tiles, writes all P
+        # rows (zeros for invalid tiles) and each occupied expert's weights
+        nbytes = ((int(plan.tile_valid.sum()) * plan.block_t + xs.shape[0])
+                  * d * sz + occupied * 3 * d * f * sz
                   + 2 * plan.tile_eid.numel() * 4)
         bms, by = bound_ms(nbytes, 6.0 * n_rows * d * f, dtype)
         out["grouped_ffn"].append(dict(
@@ -255,7 +251,7 @@ def path_parity(cfg):
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(4, 64)).astype(np.int32)
     runs = []
-    for dev in ("cpu", _DEV):
+    for dev in ("cpu", CUDA):
         p = params_to(params, dev)
         lg, cache, _ = prefill(cfg2, p, torch.as_tensor(prompts, device=dev),
                                cache_len=128, capacity_factor=8.0)
@@ -285,6 +281,10 @@ def path_parity(cfg):
 # --------------------------------------------------------- main path ---
 
 def main_path(cfg, kernel_names):
+    """Engine.generate, continuous batching, under policy off and batch.
+    The launch counters are set to 0 just before each policy's continuous
+    run and read just after it; the lockstep run and the prefill check
+    lie outside that window."""
     from repro_torch import kernels as K
     from repro_torch.bridge import init_params, param_count
     from repro_torch.configs.base import XSharePolicy
@@ -292,47 +292,47 @@ def main_path(cfg, kernel_names):
     from repro_torch.models.moe import OFF
     from repro_torch.serving import Engine
 
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=_DEV)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CUDA)
     log(f"main path: {cfg.name} {cfg.num_layers} layers, "
         f"{param_count(params) / 1e9:.3f} B parameters, bf16")
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(8, 128)).astype(np.int32)
     new = 32
     results = {}
-    K.reset_launch_counts()
     for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)):
-        eng = Engine(cfg, params, policy=pol, cache_len=512, device=_DEV)
+        eng = Engine(cfg, params, policy=pol, cache_len=512, device=CUDA)
         lock, _ = eng.generate(prompts, new, lockstep=True)
-        sync()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
         t0 = time.perf_counter()
         cont, st = eng.generate(prompts, new)
-        sync()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        log(f"main path policy={pol.mode} launches: {counts}")
+        missing = [n for n in kernel_names if counts[n] <= 0]
+        if missing:
+            fail(f"main path ({pol.mode}) never launched {missing}")
         if cont.shape != (8, new) or not np.array_equal(cont, lock):
             fail(f"main path ({pol.mode}): continuous != lockstep")
         if cont.min() < 0 or cont.max() >= cfg.vocab_size:
             fail(f"main path ({pol.mode}): token out of vocabulary")
         with torch.no_grad():
             lg, _, _ = prefill(cfg, eng.params,
-                               torch.as_tensor(prompts, device=_DEV),
+                               torch.as_tensor(prompts, device=CUDA),
                                cache_len=512, capacity_factor=8.0)
         if lg.shape != (8, cfg.padded_vocab) or \
                 not torch.isfinite(lg[:, :cfg.vocab_size]).all():
             fail(f"main path ({pol.mode}): bad prefill logits")
         results[pol.mode] = dict(
-            tokens_per_s=8 * new / wall, wall_s=wall,
+            tokens_per_s=8 * new / wall, wall_s=wall, launches=counts,
             activated_experts=st.mean_aux("activated_experts"),
             selected_set=st.mean_aux("selected_set"))
         log(f"main path policy={pol.mode}: continuous == lockstep, "
             f"{8 * new} tokens in {wall:.3f} s = "
             f"{8 * new / wall:.1f} tokens/s, activated experts per layer "
             f"{results[pol.mode]['activated_experts']:.2f}")
-    counts = K.launch_counts()
-    log(f"main path launches: {counts}")
-    missing = [n for n in kernel_names if counts[n] <= 0]
-    if missing:
-        fail(f"main path never launched {missing}")
-    return counts, results, eng.params, prompts
+    return results, eng.params, prompts
 
 
 # ------------------------------------------------------ profile phase ---
@@ -349,7 +349,7 @@ def profile_phase(cfg, params, prompts, steps: int = 8):
     from repro_torch.serving.sampler import greedy
     from repro_torch.serving.step import decode_steps_fused
 
-    toks = torch.as_tensor(prompts, device=_DEV)
+    toks = torch.as_tensor(prompts, device=CUDA)
     B = toks.shape[0]
 
     def prefilled():
@@ -360,7 +360,7 @@ def profile_phase(cfg, params, prompts, steps: int = 8):
     def decode(tok, cache):
         return decode_steps_fused(
             cfg, params, tok, cache,
-            torch.full((B,), 1000, dtype=torch.int32, device=_DEV), None,
+            torch.full((B,), 1000, dtype=torch.int32, device=CUDA), None,
             num_steps=steps, capacity_factor=8.0)
 
     out = {}
@@ -368,7 +368,7 @@ def profile_phase(cfg, params, prompts, steps: int = 8):
         runs = []
         for use_prof in (False, True):
             tok, cache = prefilled()
-            sync()
+            torch.cuda.synchronize()
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA]) \
                 if use_prof else None
@@ -379,7 +379,7 @@ def profile_phase(cfg, params, prompts, steps: int = 8):
                 prefilled()
             else:
                 decode(tok, cache)
-            sync()
+            torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             if prof is not None:
                 prof.__exit__(None, None, None)
@@ -436,7 +436,7 @@ def main() -> int:
 
     with torch.no_grad():
         path_parity(cfg)
-    counts, results, params, prompts = main_path(cfg, list(cases))
+    results, params, prompts = main_path(cfg, list(cases))
     with torch.no_grad():
         prof = profile_phase(cfg, params, prompts)
 
@@ -453,7 +453,8 @@ def main() -> int:
         f32 = next(c for c in cs if c["dtype"] == "float32")
         line.append(dict(
             name=name, route="cuda", source=sources[name][0],
-            replaces=sources[name][1], launches=counts[name],
+            replaces=sources[name][1],  # both policies' continuous runs
+            launches=sum(r["launches"][name] for r in results.values()),
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"],
