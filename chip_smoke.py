@@ -4,24 +4,38 @@ GPU. Run from the repository root:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the last line is printed):
+Phases (any failure exits non-zero before the last line is printed;
+each prints its wall time):
 
   1. setup      build the CUDA kernels from src/repro_torch/kernels/csrc,
                 switch TF32 off, print the card's name and power limit;
   2. kernels    each hand-written kernel against its plain PyTorch
-                version on the card, at the main path's shapes, in f32
+                version on the card, at the main paths' shapes, in f32
                 and bf16, timed with CUDA events beside its bound and a
-                PyTorch library call where one computes the same thing;
-  3. parity     the full-width model cut to 2 layers in f32, prefill of
-                4 x 64 tokens then 8 greedy decode steps, on the CPU
-                (plain versions) and on the card (kernels): tokens equal,
-                logits close;
-  4. main path  granite-moe-1b-a400m, all 24 layers, bf16, random
-                weights from a seed: Engine.generate serves 8 requests
-                of 128 prompt tokens, 32 new tokens each, under XShare
-                policy off and batch; continuous equals lockstep, and
-                every kernel was launched during each policy's continuous
-                run (counters set to 0 just before it, read just after).
+                PyTorch library call where one computes the same thing
+                (decode_attention at granite-moe's and zamba2-1.2b's
+                decode shapes; ssd_scan at mamba2-370m's and zamba2-1.2b's
+                prefill shapes, once more from a nonzero initial state,
+                and with dt ~ 0.01, where the state carried across chunks
+                dominates);
+  3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
+                shared-block application), prefill of 4 x 64 tokens
+                (granite-moe) or 4 x 300 (mamba2, zamba2) then 8 greedy
+                decode steps, on the CPU (plain versions) and on the card
+                (kernels): tokens equal, logits close;
+  4. main path  random weights from a seed, bf16, all layers, through
+                Engine.generate; continuous equals lockstep, and each
+                kernel of the path was launched in its continuous run
+                (counters set to 0 just before it, read just after):
+                granite-moe-1b-a400m (24 layers), 8 requests of 128
+                prompt tokens, 32 new each, XShare policy off and batch;
+                mamba2-370m (48 layers) and zamba2-1.2b (38 layers), 8
+                requests of 500 prompt tokens, 32 new each, policy off:
+                ssd_scan once per SSM layer per prefill, decode_attention
+                once per shared-block application per decode round;
+  5. profile    torch.profiler over a prefill and 8 decode steps of
+                granite-moe (8 x 128 tokens) and of mamba2-370m (8 x 500),
+                with ssd_scan's share of the mamba2 device time.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -49,9 +63,15 @@ PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain version on the same inputs: the repo's kernel-test
 # tolerances (tests/test_kernels.py), atol = rtol
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-# path parity, f32 CPU vs f32 GPU: sums over d = 1024 run in another order
+# the SSD scan's (tests/test_kernels.py: chunked vs sequential), atol = rtol
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# path parity, f32 CPU vs f32 GPU: sums over d = 1024 / 2048 run in
+# another order
 PARITY_LOGIT_TOL = 1e-3
 ARCH = "granite-moe-1b-a400m"
+SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+SSD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
+               "chunk_scan_kernel")   # the three passes of ssd_scan
 
 
 def log(*a):
@@ -109,15 +129,31 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
-def close(a, b, dtype) -> bool:
-    return bool(torch.allclose(a.float(), b.float(), atol=TOL[dtype],
-                               rtol=TOL[dtype]))
+def close(a, b, dtype, tol=TOL) -> bool:
+    return bool(torch.allclose(a.float(), b.float(), atol=tol[dtype],
+                               rtol=tol[dtype]))
+
+
+class Phase:
+    """Prints a phase's wall time when it ends."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        log(f"phase {self.name}: {time.perf_counter() - self.t0:.1f} s"
+            + (" (failed)" if exc[0] is not None else ""))
 
 
 # ----------------------------------------------------- kernel phase ---
 
-def kernel_cases(cfg):
-    """Each kernel against its plain version at the main path's shapes.
+def kernel_cases(archs):
+    """Each kernel against its plain version at the main paths' shapes
+    (decode_attention at granite-moe's and at zamba2-1.2b's shared block).
     Returns {kernel name: [case dicts]}."""
     from repro_torch.configs.base import XSharePolicy
     from repro_torch.core.routing import topk_route
@@ -131,9 +167,11 @@ def kernel_cases(cfg):
     dev = CUDA
     g = torch.Generator(device=dev)
     g.manual_seed(1234)
+    cfg = archs[ARCH]
     d, E, f, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert, \
         cfg.moe.top_k
-    a = cfg.attn
+    # (model, cache length) of each main path that runs decode_attention
+    attn_paths = ((ARCH, 512), ("zamba2-1.2b", 1024))
     out = {"grouped_ffn": [], "moe_ffn": [], "decode_attention": []}
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
@@ -201,47 +239,137 @@ def kernel_cases(cfg):
                 plain_ms=time_ms(lambda: moe_ffn_plain(*margs)),
                 bound_ms=bms, bound_by=by, library_ms=None))
 
-        # decode_attention: 8 rows, cache 512, ragged lengths
-        B, S = 8, 512
-        q = randn(B, a.num_heads, a.head_dim, dtype=dtype)
-        kc = randn(B, S, a.num_kv_heads, a.head_dim, dtype=dtype)
-        vc = randn(B, S, a.num_kv_heads, a.head_dim, dtype=dtype)
-        lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev,
-                                dtype=torch.int32)
-        ker = decode_attention(q, kc, vc, lengths)
-        ref = decode_attention_plain(q, kc, vc, lengths)
-        mask = (torch.arange(S, device=dev)[None, :]
-                < lengths[:, None])[:, None, None, :]
-        kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+        # decode_attention: 8 rows, ragged lengths, each path's cache
+        for model, S in attn_paths:
+            a, B = archs[model].attn, 8
+            q = randn(B, a.num_heads, a.head_dim, dtype=dtype)
+            kc = randn(B, S, a.num_kv_heads, a.head_dim, dtype=dtype)
+            vc = randn(B, S, a.num_kv_heads, a.head_dim, dtype=dtype)
+            lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev,
+                                    dtype=torch.int32)
+            ker = decode_attention(q, kc, vc, lengths)
+            ref = decode_attention_plain(q, kc, vc, lengths)
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < lengths[:, None])[:, None, None, :]
+            kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
 
-        def sdpa():
-            return torch.nn.functional.scaled_dot_product_attention(
-                q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
-        lib_err = max_err(sdpa()[:, :, 0], ref)
-        live = int(lengths.clamp(max=S).sum())
-        nbytes = (2 * q.numel() * sz + 2 * live * a.num_kv_heads
-                  * a.head_dim * sz + B * 4)
-        bms, by = bound_ms(nbytes, 4.0 * live * a.num_heads * a.head_dim,
-                           dtype)
-        out["decode_attention"].append(dict(
-            dtype=str(dtype).replace("torch.", ""),
-            shape=f"B={B} S={S} H={a.num_heads} Hkv={a.num_kv_heads} "
-                  f"dh={a.head_dim} live={live}",
-            max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
-            ref_max_abs=float(ref.float().abs().max()),
-            library_max_abs_err=lib_err,
-            ms=time_ms(lambda: decode_attention(q, kc, vc, lengths)),
-            plain_ms=time_ms(lambda: decode_attention_plain(q, kc, vc,
-                                                            lengths)),
-            bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa)))
+            def sdpa():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)
+            lib_err = max_err(sdpa()[:, :, 0], ref)
+            live = int(lengths.clamp(max=S).sum())
+            nbytes = (2 * q.numel() * sz + 2 * live * a.num_kv_heads
+                      * a.head_dim * sz + B * 4)
+            bms, by = bound_ms(nbytes, 4.0 * live * a.num_heads
+                               * a.head_dim, dtype)
+            out["decode_attention"].append(dict(
+                dtype=str(dtype).replace("torch.", ""), model=model,
+                shape=f"B={B} S={S} H={a.num_heads} Hkv={a.num_kv_heads} "
+                      f"dh={a.head_dim} live={live}",
+                max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
+                ref_max_abs=float(ref.float().abs().max()),
+                library_max_abs_err=lib_err,
+                ms=time_ms(lambda: decode_attention(q, kc, vc, lengths)),
+                plain_ms=time_ms(lambda: decode_attention_plain(
+                    q, kc, vc, lengths)),
+                bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa)))
+            del q, kc, vc, kt, vt
         del w1, w3, w2
+    return out
+
+
+def ssd_work(B, S, nh, hd, g, ds, l, sz, init):
+    """(bytes, operations) of one SSD scan: each input read once and each
+    output written once; per (row, head) and chunk of n positions, the
+    causal half of C·Bᵀ and of the masked scores times x (n(n+1)/2 pairs,
+    2·ds + 2·hd operations each) and the chunk's own state (2·n·hd·ds),
+    and where a state enters the chunk, its term (2·n·hd·ds) and its
+    carry (2·hd·ds)."""
+    nbytes = (2 * B * S * nh * hd * sz + 2 * B * S * g * ds * sz
+              + B * S * nh * 4 + nh * 4
+              + B * nh * hd * ds * 4 * (2 if init else 1))
+    flops = 0
+    for c, t0 in enumerate(range(0, S, l)):
+        n = min(l, S - t0)
+        flops += n * (n + 1) // 2 * 2 * (ds + hd) + 2 * n * hd * ds
+        if c > 0 or init:
+            flops += 2 * n * hd * ds + 2 * hd * ds
+    return nbytes, float(flops * B * nh)
+
+
+def ssd_cases(archs):
+    """ssd_scan against ssd_scan_plain at the SSM main paths' prefill
+    shapes (8 requests x 500 tokens, one group), f32 and bf16, from a
+    nonzero initial state in f32, and with dt ~ 0.01 in f32 and bf16.
+    dt = softplus(randn + shift): shift 0 gives dt ~ 0.8, so a chunk
+    decays by exp(-100) or less and almost nothing is carried to the
+    next one; shift -5 gives dt in real Mamba2's range, where a chunk
+    decays by ~0.06 (256 positions) or ~0.25 (128) and the carried state
+    dominates the later chunks (each case records its mean decay)."""
+    from repro_torch.kernels import ssd_scan, ssd_scan_plain
+    from repro_torch.models.ssm import dims
+
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(4321)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=CUDA)
+                ).to(dtype)
+
+    out = []
+    for name in SSM_ARCHS:
+        s = archs[name].ssm
+        _, nh, _ = dims(s, archs[name].d_model)
+        B, S, hd, grp, ds = 8, 500, s.head_dim, s.n_groups, s.d_state
+        l = min(s.chunk_size, S)
+        for dtype, init, shift in ((torch.float32, False, 0.0),
+                                   (torch.bfloat16, False, 0.0),
+                                   (torch.float32, True, 0.0),
+                                   (torch.float32, False, -5.0),
+                                   (torch.bfloat16, False, -5.0)):
+            sz = torch.finfo(dtype).bits // 8
+            x = randn(B, S, nh, hd, scale=0.5, dtype=dtype)
+            dt = torch.nn.functional.softplus(randn(B, S, nh) + shift)
+            A = -torch.exp(randn(nh, scale=0.3))
+            Bm = randn(B, S, grp, ds, scale=0.3, dtype=dtype)
+            Cm = randn(B, S, grp, ds, scale=0.3, dtype=dtype)
+            st0 = randn(B, nh, hd, ds, scale=0.2) if init else None
+            args = (x, dt, A, Bm, Cm)
+            kw = dict(chunk=s.chunk_size, init_state=st0)
+            y, st = ssd_scan(*args, **kw)
+            yr, sr = ssd_scan_plain(*args, **kw)
+            if not (torch.isfinite(y.float()).all()
+                    and torch.isfinite(st).all()):
+                fail(f"ssd_scan {name}: non-finite output")
+            nbytes, flops = ssd_work(B, S, nh, hd, grp, ds, l, sz, init)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            out.append(dict(
+                dtype=str(dtype).replace("torch.", ""), model=name,
+                init_state=init, dt_shift=shift,
+                dt_mean=float(dt.mean()),
+                chunk_decay_mean=float(torch.exp(
+                    (dt[:, :l] * A).sum(1)).mean()),
+                shape=f"B={B} S={S} nh={nh} hd={hd} g={grp} ds={ds} "
+                      f"chunk={l}",
+                max_abs_err=max(max_err(y, yr), max_err(st, sr)),
+                max_abs_err_y=max_err(y, yr), max_abs_err_state=max_err(st, sr),
+                ok=close(y, yr, dtype, SCAN_TOL)
+                and close(st, sr, torch.float32, SCAN_TOL),
+                ref_max_abs=float(yr.float().abs().max()),
+                ms=time_ms(lambda: ssd_scan(*args, **kw)),
+                plain_ms=time_ms(lambda: ssd_scan_plain(*args, **kw),
+                                 iters=5),
+                bound_ms=bms, bound_by=by, library_ms=None,
+                bytes=nbytes, flops=flops))
+            del x, Bm, Cm, y, yr
     return out
 
 
 # ------------------------------------------------------ parity phase ---
 
-def path_parity(cfg):
-    """Same seeded weights, f32: CPU (plain versions) vs GPU (kernels)."""
+def path_parity(cfg, prompt_len: int, cache_len: int):
+    """Same seeded weights, f32, 2 layers: CPU (plain versions) vs GPU
+    (kernels)."""
     from repro_torch.bridge import init_params
     from repro_torch.models.model import decode_step, params_to, prefill
     from repro_torch.serving.sampler import greedy
@@ -249,12 +377,12 @@ def path_parity(cfg):
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     params = init_params(cfg2, seed=0, dtype=torch.float32, device="cpu")
     prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(4, 64)).astype(np.int32)
+        0, cfg.vocab_size, size=(4, prompt_len)).astype(np.int32)
     runs = []
     for dev in ("cpu", CUDA):
         p = params_to(params, dev)
         lg, cache, _ = prefill(cfg2, p, torch.as_tensor(prompts, device=dev),
-                               cache_len=128, capacity_factor=8.0)
+                               cache_len=cache_len, capacity_factor=8.0)
         logits, toks = [lg.cpu()], []
         tok = greedy(lg)
         for _ in range(8):
@@ -267,40 +395,41 @@ def path_parity(cfg):
         toks.append(tok.cpu())
         runs.append((torch.stack(logits), torch.stack(toks)))
     (lc, tc), (lg_, tg) = runs
-    if not torch.isfinite(lg_).all():
-        fail("parity: non-finite logits on the GPU")
+    if not torch.isfinite(lg_[..., :cfg.vocab_size]).all():
+        fail(f"parity {cfg.name}: non-finite logits on the GPU")
     err = max_err(lc, lg_)
     same = bool((tc == tg).all())
-    log(f"parity: 2 layers f32, prefill 4x64 + 8 decode steps: "
-        f"tokens equal={same}, max |logit diff|={err:.3e} "
+    log(f"parity {cfg.name}: 2 layers f32, prefill 4x{prompt_len} + 8 "
+        f"decode steps: tokens equal={same}, max |logit diff|={err:.3e} "
         f"(tol {PARITY_LOGIT_TOL})")
     if not same or err > PARITY_LOGIT_TOL:
-        fail("parity: CPU and GPU disagree")
+        fail(f"parity {cfg.name}: CPU and GPU disagree")
+    return dict(tokens_equal=same, max_abs_logit_diff=err)
 
 
 # --------------------------------------------------------- main path ---
 
-def main_path(cfg, kernel_names):
-    """Engine.generate, continuous batching, under policy off and batch.
-    The launch counters are set to 0 just before each policy's continuous
-    run and read just after it; the lockstep run and the prefill check
-    lie outside that window."""
+def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
+              policies, expect=None):
+    """Engine.generate, continuous batching, 8 requests, under each
+    policy. The launch counters are set to 0 just before each policy's
+    continuous run and read just after it; the lockstep run and the
+    prefill check lie outside that window. Every kernel in ``kernels``
+    must have launched; ``expect(engine)`` gives exact counts to hold."""
     from repro_torch import kernels as K
     from repro_torch.bridge import init_params, param_count
-    from repro_torch.configs.base import XSharePolicy
     from repro_torch.models.model import prefill
-    from repro_torch.models.moe import OFF
     from repro_torch.serving import Engine
 
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CUDA)
     log(f"main path: {cfg.name} {cfg.num_layers} layers, "
         f"{param_count(params) / 1e9:.3f} B parameters, bf16")
     prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(8, 128)).astype(np.int32)
-    new = 32
+        0, cfg.vocab_size, size=(8, prompt_len)).astype(np.int32)
     results = {}
-    for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)):
-        eng = Engine(cfg, params, policy=pol, cache_len=512, device=CUDA)
+    for pol in policies:
+        eng = Engine(cfg, params, policy=pol, cache_len=cache_len,
+                     device=CUDA)
         lock, _ = eng.generate(prompts, new, lockstep=True)
         torch.cuda.synchronize()
         K.reset_launch_counts()
@@ -309,39 +438,66 @@ def main_path(cfg, kernel_names):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = K.launch_counts()
-        log(f"main path policy={pol.mode} launches: {counts}")
-        missing = [n for n in kernel_names if counts[n] <= 0]
+        log(f"main path {cfg.name} policy={pol.mode} launches: {counts}")
+        missing = [n for n in kernels if counts[n] <= 0]
         if missing:
-            fail(f"main path ({pol.mode}) never launched {missing}")
+            fail(f"main path {cfg.name} ({pol.mode}) never launched "
+                 f"{missing}")
+        wrong = {n: (counts[n], want)
+                 for n, want in (expect(eng) if expect else {}).items()
+                 if counts[n] != want}
+        if wrong:
+            fail(f"main path {cfg.name} ({pol.mode}): launches "
+                 f"(counted, expected) {wrong}")
         if cont.shape != (8, new) or not np.array_equal(cont, lock):
-            fail(f"main path ({pol.mode}): continuous != lockstep")
+            fail(f"main path {cfg.name} ({pol.mode}): continuous != "
+                 f"lockstep")
         if cont.min() < 0 or cont.max() >= cfg.vocab_size:
-            fail(f"main path ({pol.mode}): token out of vocabulary")
+            fail(f"main path {cfg.name} ({pol.mode}): token out of "
+                 f"vocabulary")
         with torch.no_grad():
             lg, _, _ = prefill(cfg, eng.params,
                                torch.as_tensor(prompts, device=CUDA),
-                               cache_len=512, capacity_factor=8.0)
+                               cache_len=cache_len, capacity_factor=8.0)
         if lg.shape != (8, cfg.padded_vocab) or \
                 not torch.isfinite(lg[:, :cfg.vocab_size]).all():
-            fail(f"main path ({pol.mode}): bad prefill logits")
-        results[pol.mode] = dict(
-            tokens_per_s=8 * new / wall, wall_s=wall, launches=counts,
-            activated_experts=st.mean_aux("activated_experts"),
-            selected_set=st.mean_aux("selected_set"))
-        log(f"main path policy={pol.mode}: continuous == lockstep, "
-            f"{8 * new} tokens in {wall:.3f} s = "
-            f"{8 * new / wall:.1f} tokens/s, activated experts per layer "
-            f"{results[pol.mode]['activated_experts']:.2f}")
+            fail(f"main path {cfg.name} ({pol.mode}): bad prefill logits")
+        res = dict(tokens_per_s=8 * new / wall, wall_s=wall, launches=counts,
+                   prompt_len=prompt_len, new_tokens=new)
+        msg = ""
+        if cfg.moe is not None:
+            res.update(activated_experts=st.mean_aux("activated_experts"),
+                       selected_set=st.mean_aux("selected_set"))
+            msg = (f", activated experts per layer "
+                   f"{res['activated_experts']:.2f}")
+        results[pol.mode] = res
+        log(f"main path {cfg.name} policy={pol.mode}: continuous == "
+            f"lockstep, {8 * new} tokens in {wall:.3f} s = "
+            f"{8 * new / wall:.1f} tokens/s{msg}")
     return results, eng.params, prompts
+
+
+def ssm_expect(cfg, new: int):
+    """Exact launches of an SSM / hybrid continuous run: one prefill of
+    all 8 requests (ssd_scan once per layer), then decode rounds of
+    decode_chunk steps until the last of the new-1 tokens after the
+    first (decode_attention once per shared-block application)."""
+    from repro_torch.models.model import _num_shared_apps
+
+    def expect(eng):
+        rounds = -(-(new - 1) // eng.decode_chunk) * eng.decode_chunk
+        return {"ssd_scan": cfg.num_layers, "grouped_ffn": 0, "moe_ffn": 0,
+                "decode_attention": _num_shared_apps(cfg) * rounds}
+    return expect
 
 
 # ------------------------------------------------------ profile phase ---
 
-def profile_phase(cfg, params, prompts, steps: int = 8):
-    """Where a decode step's time goes, policy off: host wall per step
-    (no profiler), then torch.profiler over the same steps for the
-    device's busy time by kernel. Device numbers are "not measured" if
-    the profiler sees no CUDA kernels."""
+def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
+    """Where a prefill's or a decode step's time goes, policy off: host
+    wall per call (no profiler), then torch.profiler over the same calls
+    for the device's busy time by kernel. Device numbers are "not
+    measured" if the profiler sees no CUDA kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -353,7 +509,7 @@ def profile_phase(cfg, params, prompts, steps: int = 8):
     B = toks.shape[0]
 
     def prefilled():
-        lg, cache, _ = prefill(cfg, params, toks, cache_len=512,
+        lg, cache, _ = prefill(cfg, params, toks, cache_len=cache_len,
                                capacity_factor=8.0)
         return greedy(lg), cache
 
@@ -389,6 +545,8 @@ def profile_phase(cfg, params, prompts, steps: int = 8):
         kern = [e for e in runs[1][1].key_averages()
                 if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / per
+        ssd_ms = sum(e.self_device_time_total for e in kern
+                     if any(k in e.key for k in SSD_KERNELS)) / 1e3 / per
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
         out[name] = dict(
             wall_ms=wall_ms, profiled_wall_ms=runs[1][0] * 1e3 / per,
@@ -398,7 +556,11 @@ def profile_phase(cfg, params, prompts, steps: int = 8):
             kernels_per_call=sum(e.count for e in kern) / per,
             top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3
                       / per, calls=e.count / per) for e in top])
-        log(f"profile {name}: {json.dumps(out[name])}")
+        if cfg.ssm is not None:
+            out[name].update(ssd_scan_ms=ssd_ms if kern else "not measured",
+                             ssd_scan_share_of_busy=ssd_ms / busy_ms
+                             if kern and busy_ms else "not measured")
+        log(f"profile {cfg.name} {name}: {json.dumps(out[name])}")
     return out
 
 
@@ -406,39 +568,70 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from repro_torch.configs.base import XSharePolicy
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import build
+    from repro_torch.models.moe import OFF
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
-        f"cudnn={torch.backends.cudnn.allow_tf32}")
-    card = gpu_name_power()
-    log(f"card: {card}")
-    t0 = time.perf_counter()
-    build.build()
-    log(f"built kernels in {time.perf_counter() - t0:.1f} s")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    t_start = time.perf_counter()
+    with Phase("setup"):
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+            f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+            f"cudnn={torch.backends.cudnn.allow_tf32}")
+        card = gpu_name_power()
+        log(f"card: {card}")
+        t0 = time.perf_counter()
+        build.build()
+        log(f"built kernels in {time.perf_counter() - t0:.1f} s")
+        for line in build.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas:", line.strip())
 
     cfg = ARCHS[ARCH]
-    with torch.no_grad():
-        cases = kernel_cases(cfg)
-    bad = [(n, c["dtype"], c.get("policy")) for n, cs in cases.items()
-           for c in cs if not c["ok"]]
+    with Phase("kernels"), torch.no_grad():
+        cases = kernel_cases(ARCHS)
+        cases["ssd_scan"] = ssd_cases(ARCHS)
+    bad = [(n, c["dtype"], c.get("policy"), c.get("model"),
+            c.get("init_state"), c.get("dt_shift"))
+           for n, cs in cases.items() for c in cs if not c["ok"]]
     for n, cs in cases.items():
         for c in cs:
             log(f"kernel {n}: {json.dumps(c)}")
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
 
-    with torch.no_grad():
-        path_parity(cfg)
-    results, params, prompts = main_path(cfg, list(cases))
-    with torch.no_grad():
-        prof = profile_phase(cfg, params, prompts)
+    with Phase("parity"), torch.no_grad():
+        parity = {ARCH: path_parity(cfg, 64, 128)}
+        for name in SSM_ARCHS:
+            parity[name] = path_parity(ARCHS[name], 300, 320)
+
+    results, prof = {}, {}
+    with Phase(f"main path {ARCH}"):
+        results[ARCH], params, prompts = main_path(
+            cfg, kernels=("grouped_ffn", "moe_ffn", "decode_attention"),
+            prompt_len=128, new=32, cache_len=512,
+            policies=(OFF, XSharePolicy(mode="batch", k0=1, m_l=8)))
+    with Phase(f"profile {ARCH}"), torch.no_grad():
+        prof[ARCH] = profile_phase(cfg, params, prompts, cache_len=512)
+    del params
+    torch.cuda.empty_cache()
+    for name in SSM_ARCHS:
+        scfg = ARCHS[name]
+        kernels = ("ssd_scan",) + (("decode_attention",)
+                                   if scfg.family == "hybrid" else ())
+        with Phase(f"main path {name}"):
+            results[name], params, prompts = main_path(
+                scfg, kernels=kernels, prompt_len=500, new=32,
+                cache_len=1024, policies=(OFF,),
+                expect=ssm_expect(scfg, 32))
+        if name == "mamba2-370m":
+            with Phase(f"profile {name}"), torch.no_grad():
+                prof[name] = profile_phase(scfg, params, prompts,
+                                           cache_len=1024)
+        del params
+        torch.cuda.empty_cache()
 
     sources = {"grouped_ffn": ("src/repro_torch/kernels/csrc/grouped_ffn.cu",
                                "src/repro/kernels/moe_ffn.py:155"),
@@ -446,24 +639,31 @@ def main() -> int:
                            "src/repro/kernels/moe_ffn.py:77"),
                "decode_attention": (
                    "src/repro_torch/kernels/csrc/decode_attn.cu",
-                   "src/repro/kernels/decode_attn.py:67")}
+                   "src/repro/kernels/decode_attn.py:67"),
+               "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                            "src/repro/kernels/ssd_scan.py:66")}
     line = []
     for name, cs in cases.items():
         main_case = next(c for c in cs if c["dtype"] == "bfloat16")
         f32 = next(c for c in cs if c["dtype"] == "float32")
+        tol = SCAN_TOL if name == "ssd_scan" else TOL
         line.append(dict(
             name=name, route="cuda", source=sources[name][0],
-            replaces=sources[name][1],  # both policies' continuous runs
-            launches=sum(r["launches"][name] for r in results.values()),
+            replaces=sources[name][1],
+            # summed over every main path's continuous runs
+            launches=sum(r["launches"][name] for runs in results.values()
+                         for r in runs.values()),
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"],
             dtype="bfloat16", shape=main_case["shape"],
-            tol=TOL[torch.bfloat16], max_abs_err_f32=f32["max_abs_err"],
-            tol_f32=TOL[torch.float32], cases=cs))
+            tol=tol[torch.bfloat16], max_abs_err_f32=f32["max_abs_err"],
+            tol_f32=tol[torch.float32], cases=cs))
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": line, "main_path": results,
-                      "profile": prof, "card": card}), flush=True)
+                      "parity": parity, "profile": prof, "card": card}),
+          flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -100,7 +100,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                 device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None) -> Dict:
     """Random parameters with the JAX package's keys, shapes and dtypes:
-    N(0, 0.02) matrices, unit norm weights, an f32 router."""
+    N(0, 0.02) matrices (N(0, 0.1) conv taps), unit norm weights, zero
+    conv biases, an f32 router, and the SSM's A_log = 0, D = 1 and
+    dt_bias = 0 in f32 whatever the model's dtype."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (have {_FAMILIES})")
@@ -110,22 +112,54 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
 
-    def dense(shape, dt=dtype):
+    def dense(shape, dt=dtype, scale=0.02):
         w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-        return (0.02 * w).to(dt)
+        return (scale * w).to(dt)
 
-    def ones(shape):
-        return torch.ones(shape, device=dev, dtype=dtype)
+    def ones(shape, dt=dtype):
+        return torch.ones(shape, device=dev, dtype=dt)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, device=dev, dtype=dt)
+
+    def attn_params(pre):
+        a = cfg.attn
+        H, Hkv, dh = a.num_heads, a.num_kv_heads, a.head_dim
+        p = {"wq": dense(pre + (d, H * dh)), "wk": dense(pre + (d, Hkv * dh)),
+             "wv": dense(pre + (d, Hkv * dh)), "wo": dense(pre + (H * dh, d))}
+        if a.qk_norm:
+            p["q_norm"] = ones(pre + (dh,))
+            p["k_norm"] = ones(pre + (dh,))
+        return p
+
+    def mlp_params(pre):
+        p = {"w1": dense(pre + (d, cfg.d_ff)), "w2": dense(pre + (cfg.d_ff, d))}
+        if cfg.act == "swiglu":
+            p["w3"] = dense(pre + (d, cfg.d_ff))
+        return p
 
     L, d, V = cfg.num_layers, cfg.d_model, cfg.padded_vocab
-    a = cfg.attn
-    H, Hkv, dh = a.num_heads, a.num_kv_heads, a.head_dim
-    attn = {"wq": dense((L, d, H * dh)), "wk": dense((L, d, Hkv * dh)),
-            "wv": dense((L, d, Hkv * dh)), "wo": dense((L, H * dh, d))}
-    if a.qk_norm:
-        attn["q_norm"] = ones((L, dh))
-        attn["k_norm"] = ones((L, dh))
-    layers: Dict = {"attn_norm": ones((L, d)), "attn": attn}
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        d_inner = s.expand * d
+        nh, d_bc, K = d_inner // s.head_dim, s.n_groups * s.d_state, s.d_conv
+        f32 = torch.float32
+        layers: Dict = {"norm": ones((L, d)), "ssm": {
+            "in_z": dense((L, d, d_inner)), "in_x": dense((L, d, d_inner)),
+            "in_B": dense((L, d, d_bc)), "in_C": dense((L, d, d_bc)),
+            "in_dt": dense((L, d, nh)),
+            "conv_x_w": dense((L, K, d_inner), scale=0.1),
+            "conv_x_b": zeros((L, d_inner)),
+            "conv_B_w": dense((L, K, d_bc), scale=0.1),
+            "conv_B_b": zeros((L, d_bc)),
+            "conv_C_w": dense((L, K, d_bc), scale=0.1),
+            "conv_C_b": zeros((L, d_bc)),
+            "A_log": zeros((L, nh), f32), "D": ones((L, nh), f32),
+            "dt_bias": zeros((L, nh), f32),
+            "norm_w": ones((L, d_inner)),
+            "out_proj": dense((L, d_inner, d))}}
+    else:
+        layers = {"attn_norm": ones((L, d)), "attn": attn_params((L,))}
     if cfg.family == "moe":
         m = cfg.moe
         E, f = m.num_experts, m.d_ff_expert
@@ -138,14 +172,16 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                        ws2=dense((L, fs, d)))
         layers["moe_norm"] = ones((L, d))
         layers["moe"] = moe
-    else:
-        mlp = {"w1": dense((L, d, cfg.d_ff)), "w2": dense((L, cfg.d_ff, d))}
-        if cfg.act == "swiglu":
-            mlp["w3"] = dense((L, d, cfg.d_ff))
+    elif cfg.family == "dense":
         layers["mlp_norm"] = ones((L, d))
-        layers["mlp"] = mlp
-    params = {"embed": dense((V, d)), "layers": layers,
-              "final_norm": ones((d,))}
+        layers["mlp"] = mlp_params((L,))
+    params = {"embed": dense((V, d)), "layers": layers}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = {"attn_norm": ones((d,)),
+                                 "attn": attn_params(()),
+                                 "mlp_norm": ones((d,)),
+                                 "mlp": mlp_params(())}
+    params["final_norm"] = ones((d,))
     if not cfg.tie_embeddings:
         params["lm_head"] = dense((d, V))
     return params

@@ -40,6 +40,7 @@ SIGNATURES = {
     "moe_ffn_reduce": [_P, _P, _P, _I, _I, _I, _I, _P],
     "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _P],
+    "ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,7 @@
-"""Model composition: embed -> decoder blocks -> head, for the dense and
-MoE families (the SSM, hybrid, VLM and audio families are not ported).
+"""Model composition: embed -> decoder blocks -> head, for the dense,
+MoE, SSM (Mamba2) and hybrid (Zamba2) families (the VLM and audio
+families are not ported). The hybrid applies one weight-shared
+attention + MLP block before each group of ``attn_every`` SSM layers.
 
 Parameters are the JAX package's nested dict with the same keys and
 layouts; layer parameters are stacked on a leading L axis and the
@@ -12,8 +14,11 @@ the tree itself.
   decode_step  T new tokens per row against the cache
 
 Cache writes (decode_step, insert_request, evict_slot) update the cache
-tensors in place — the JAX package returns new arrays; in place saves a
-copy of the whole cache per step — and return the cache dict.
+tensors in place — KV rows, conv tails and SSM states; the JAX package
+returns new arrays; in place saves a copy of the whole cache per step —
+and return the cache dict. As in the JAX package, a decode step advances
+the SSM state of every row, inactive ones included; insert_request
+overwrites a row whole before it is reused.
 """
 from __future__ import annotations
 
@@ -25,12 +30,14 @@ from torch import nn
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import ArchConfig, XSharePolicy
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as S
 from repro_torch.models.layers import mlp_apply, rms_norm
 from repro_torch.models.moe import OFF, moe_apply
 
 WINDOW_MARGIN = 512   # rolling-cache slack, as in the JAX package
 
-_FAMILIES = ("dense", "moe")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
@@ -120,6 +127,62 @@ def _ffn_block(cfg: ArchConfig, lp: Dict, x: torch.Tensor,
     return x + mlp_apply(lp["mlp"], h, cfg.act), {}
 
 
+def _shared_attn_block(cfg: ArchConfig, sp: Dict, x: torch.Tensor,
+                       positions: torch.Tensor, window: Optional[int],
+                       cache=None, cur_len=None):
+    """The hybrid family's weight-shared attention + MLP block. Full
+    sequence when ``cache`` is None, else against the (ck, cv) cache,
+    written in place. Returns (x, k, v)."""
+    B, T = x.shape[:2]
+    h = rms_norm(x, sp["attn_norm"], cfg.norm_eps)
+    q, k, v = A.qkv_project(sp["attn"], h, positions, cfg.attn, cfg.norm_eps)
+    if cache is None:
+        a = A.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        ck, cv = cache
+        A.update_cache(ck, k, cur_len, window=window)
+        A.update_cache(cv, v, cur_len, window=window)
+        a = A.cached_attention(q, ck, cv, cur_len, window=window)
+    x = x + a.reshape(B, T, -1) @ sp["attn"]["wo"]
+    h = rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
+    return x + mlp_apply(sp["mlp"], h, cfg.act), k, v
+
+
+def _num_shared_apps(cfg: ArchConfig) -> int:
+    return -(-cfg.num_layers // cfg.attn_every) if cfg.attn_every else 0
+
+
+def _ssm_segments(cfg: ArchConfig):
+    """(shared-block application or None, first layer, end layer) in
+    order: one segment of all layers for the SSM family; for the hybrid,
+    application g before layers g·ae .. min((g+1)·ae, L)."""
+    if cfg.family == "ssm":
+        return [(None, 0, cfg.num_layers)]
+    ae = cfg.attn_every
+    return [(g, g * ae, min((g + 1) * ae, cfg.num_layers))
+            for g in range(_num_shared_apps(cfg))]
+
+
+def _ssm_layer(cfg: ArchConfig, params: Dict, i: int, x: torch.Tensor):
+    """Pre-norm SSM layer i over a full sequence: (x + y, layer cache)."""
+    lp = layer_params(params["layers"], i)
+    hn = rms_norm(x, lp["norm"], cfg.norm_eps)
+    y, cache = S.ssm_forward(lp["ssm"], hn, cfg.ssm, cfg.d_model,
+                             cfg.norm_eps)
+    return x + y, cache
+
+
+def _ssm_decode_multi(cfg: ArchConfig, lp: Dict, h: torch.Tensor,
+                      conv, state):
+    """h: (B, T, d) -> (B, T, d), the recurrence stepped over T."""
+    ys = []
+    for t in range(h.shape[1]):
+        y, (conv, state) = S.ssm_decode(lp, h[:, t], (conv, state),
+                                        cfg.ssm, cfg.d_model, cfg.norm_eps)
+        ys.append(y)
+    return torch.stack(ys, dim=1), conv, state
+
+
 def effective_window(cfg: ArchConfig, *,
                      force_window: Optional[int] = None) -> Optional[int]:
     if force_window is not None:
@@ -142,6 +205,15 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
     win = window if window is not None else effective_window(cfg)
     auxs = []
+    if cfg.family in _SSM_FAMILIES:
+        for g, lo, hi in _ssm_segments(cfg):
+            if g is not None:
+                x, _, _ = _shared_attn_block(cfg, params["shared_attn"], x,
+                                             positions, win)
+            for i in range(lo, hi):
+                x, _ = _ssm_layer(cfg, params, i, x)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return lm_head_apply(cfg, params, x), {}
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
@@ -161,17 +233,41 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
                force_window: Optional[int] = None,
                device=None) -> Dict:
-    """Decode cache: per-slot ``cur_len`` (batch,) and KV of shape
-    (L, batch, C, Hkv, dh), C = cache_len (or window + margin)."""
+    """Decode cache: per-slot ``cur_len`` (batch,); for the dense and MoE
+    families KV of shape (L, batch, C, Hkv, dh), C = cache_len (or
+    window + margin); for the SSM and hybrid families the conv tails
+    ``conv_x`` / ``conv_B`` / ``conv_C`` (L, batch, K-1, ·) and the f32
+    ``state`` (L, batch, nh, hd, ds); for the hybrid also the shared
+    block's ``shared_k`` / ``shared_v`` (apps, batch, C, Hkv, dh)."""
     _check_family(cfg)
     win = effective_window(cfg, force_window=force_window)
     C = (win + WINDOW_MARGIN) if win is not None else cache_len
+    L = cfg.num_layers
+    cache = {"cur_len": torch.zeros((batch,), dtype=torch.int32,
+                                    device=device)}
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
     a = cfg.attn
-    shape = (cfg.num_layers, batch, C, a.num_kv_heads, a.head_dim)
-    return {"cur_len": torch.zeros((batch,), dtype=torch.int32,
-                                   device=device),
-            "kv_k": torch.zeros(shape, dtype=dtype, device=device),
-            "kv_v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family in _SSM_FAMILIES:
+        d_inner, nh, d_bc = S.dims(cfg.ssm, cfg.d_model)
+        K = cfg.ssm.d_conv
+        cache["conv_x"] = zeros(L, batch, K - 1, d_inner)
+        cache["conv_B"] = zeros(L, batch, K - 1, d_bc)
+        cache["conv_C"] = zeros(L, batch, K - 1, d_bc)
+        cache["state"] = zeros(L, batch, nh, cfg.ssm.head_dim,
+                               cfg.ssm.d_state, dt=torch.float32)
+        if cfg.family == "hybrid":
+            apps = _num_shared_apps(cfg)
+            cache["shared_k"] = zeros(apps, batch, C, a.num_kv_heads,
+                                      a.head_dim)
+            cache["shared_v"] = zeros(apps, batch, C, a.num_kv_heads,
+                                      a.head_dim)
+        return cache
+    cache["kv_k"] = zeros(L, batch, C, a.num_kv_heads, a.head_dim)
+    cache["kv_v"] = zeros(L, batch, C, a.num_kv_heads, a.head_dim)
+    return cache
 
 
 def insert_request(cache: Dict, req_cache: Dict, slot: int,
@@ -188,7 +284,7 @@ def insert_request(cache: Dict, req_cache: Dict, slot: int,
 
 def evict_slot(cache: Dict, slot: int, *, scrub: bool = False) -> Dict:
     """Mark row ``slot`` free (cur_len = 0, in place). scrub=True also
-    zeroes the row's KV (numerics quarantine)."""
+    zeroes the row in every cache tensor (numerics quarantine)."""
     for k, v in cache.items():
         if k == "cur_len":
             v[slot] = 0
@@ -234,6 +330,21 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     cache = init_cache(cfg, B, cache_len, cdt, force_window=force_window,
                        device=x.device)
     cache["cur_len"].fill_(T)
+    if cfg.family in _SSM_FAMILIES:
+        for g, lo, hi in _ssm_segments(cfg):
+            if g is not None:
+                x, k, v = _shared_attn_block(cfg, params["shared_attn"], x,
+                                             positions, win)
+                cache["shared_k"][g] = _build_cache_slice(k, C, win).to(cdt)
+                cache["shared_v"][g] = _build_cache_slice(v, C, win).to(cdt)
+            for i in range(lo, hi):
+                x, ((cx, cB, cC), state) = _ssm_layer(cfg, params, i, x)
+                cache["conv_x"][i] = cx.to(cdt)
+                cache["conv_B"][i] = cB.to(cdt)
+                cache["conv_C"][i] = cC.to(cdt)
+                cache["state"][i] = state
+        x_last = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        return lm_head_apply(cfg, params, x_last)[:, 0], cache, {}
     auxs = []
     for i in range(cfg.num_layers):
         lp = layer_params(params["layers"], i)
@@ -270,7 +381,7 @@ def decode_step(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     ignores.
 
     Returns (logits (B, T, V), cache with cur_len advanced by T, aux);
-    the KV tensors are updated in place."""
+    the KV, conv and state tensors are updated in place."""
     x = embed_tokens(cfg, params, tokens)
     B, T = x.shape[:2]
     cur = cache["cur_len"]
@@ -278,20 +389,40 @@ def decode_step(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
     win = effective_window(cfg, force_window=force_window)
     token_mask = None if active is None else active[:, None].expand(B, T)
     auxs = []
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
-        ck, cv = cache["kv_k"][i], cache["kv_v"][i]
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = A.qkv_project(lp["attn"], h, positions, cfg.attn,
-                                cfg.norm_eps)
-        A.update_cache(ck, k, cur, window=win)
-        A.update_cache(cv, v, cur, window=win)
-        a = A.cached_attention(q, ck, cv, cur, window=win)
-        x = x + a.reshape(B, T, -1) @ lp["attn"]["wo"]
-        x, aux = _ffn_block(cfg, lp, x, policy, spec_shape, None,
-                            capacity_factor, token_mask, dispatch,
-                            spec_priors)
-        auxs.append(aux)
+    if cfg.family in _SSM_FAMILIES:
+        for g, lo, hi in _ssm_segments(cfg):
+            if g is not None:
+                x, _, _ = _shared_attn_block(
+                    cfg, params["shared_attn"], x, positions, win,
+                    cache=(cache["shared_k"][g], cache["shared_v"][g]),
+                    cur_len=cur)
+            for i in range(lo, hi):
+                lp = layer_params(params["layers"], i)
+                conv = (cache["conv_x"][i], cache["conv_B"][i],
+                        cache["conv_C"][i])
+                h = rms_norm(x, lp["norm"], cfg.norm_eps)
+                y, conv, state = _ssm_decode_multi(cfg, lp["ssm"], h, conv,
+                                                   cache["state"][i])
+                x = x + y
+                cache["conv_x"][i] = conv[0]
+                cache["conv_B"][i] = conv[1]
+                cache["conv_C"][i] = conv[2]
+                cache["state"][i] = state
+    else:
+        for i in range(cfg.num_layers):
+            lp = layer_params(params["layers"], i)
+            ck, cv = cache["kv_k"][i], cache["kv_v"][i]
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k, v = A.qkv_project(lp["attn"], h, positions, cfg.attn,
+                                    cfg.norm_eps)
+            A.update_cache(ck, k, cur, window=win)
+            A.update_cache(cv, v, cur, window=win)
+            a = A.cached_attention(q, ck, cv, cur, window=win)
+            x = x + a.reshape(B, T, -1) @ lp["attn"]["wo"]
+            x, aux = _ffn_block(cfg, lp, x, policy, spec_shape, None,
+                                capacity_factor, token_mask, dispatch,
+                                spec_priors)
+            auxs.append(aux)
     new_cache = dict(cache)
     new_cache["cur_len"] = cur + T
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -94,7 +94,8 @@ def test_moe_ffn_refuses_more_than_32_tokens(cuda):
                                           (3, 4, 4, 32, 100),
                                           (1, 16, 2, 128, 1024),
                                           (2, 4, 1, 64, 64),
-                                          (8, 16, 8, 64, 512)])
+                                          (8, 16, 8, 64, 512),
+                                          (8, 32, 32, 64, 1024)])
 def test_decode_attention_kernel(cuda, dtype, B, H, Hkv, dh, S):
     from repro_torch import kernels as K
     g = torch.Generator().manual_seed(B * S)
@@ -108,3 +109,65 @@ def test_decode_attention_kernel(cuda, dtype, B, H, Hkv, dh, S):
     ref = K.decode_attention_plain(q, k, v, lengths)
     assert float(out[0].float().abs().max()) == 0.0
     check(out, ref, dtype)
+
+
+# ssd_scan against its plain version: tests/test_kernels.py's bars for
+# the scan, 1e-4 in f32 and 5e-2 in bf16
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+# dt = softplus(randn + shift): shift 0 gives dt ~ 0.8, so a long chunk
+# decays by exp(-100) or less and the carried state barely reaches the
+# next one; shift -5 gives dt ~ 0.01 (real Mamba2's range), where it
+# dominates.
+@pytest.mark.parametrize("dt_shift", [0.0, -5.0], ids=["dt0.8", "dt0.01"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,g,ds,chunk,init", [
+    (2, 64, 4, 32, 4, 16, 16, False),     # g = nh, the Pallas contract
+    (1, 100, 8, 64, 1, 64, 32, True),     # ragged tail, one group, state
+    (2, 300, 4, 64, 1, 128, 256, False),  # mamba2's chunk and state width
+    (2, 250, 8, 64, 2, 64, 128, True),    # zamba2's, two groups
+    (1, 37, 2, 32, 2, 16, 256, True),     # one chunk shorter than chunk
+    (8, 500, 32, 64, 1, 128, 256, False),  # mamba2-370m's prefill
+    (8, 500, 64, 64, 1, 64, 128, False),   # zamba2-1.2b's prefill
+])
+def test_ssd_scan_kernel(cuda, dtype, dt_shift, B, S, nh, hd, g, ds, chunk,
+                         init):
+    from repro_torch import kernels as K
+    gen = torch.Generator().manual_seed(S + nh)
+    x = rand(gen, (B, S, nh, hd), dtype, 0.5).to(cuda)
+    dt = torch.nn.functional.softplus(
+        rand(gen, (B, S, nh), torch.float32) + dt_shift).to(cuda)
+    A = (-torch.exp(rand(gen, (nh,), torch.float32, 0.3))).to(cuda)
+    Bm = rand(gen, (B, S, g, ds), dtype, 0.3).to(cuda)
+    Cm = rand(gen, (B, S, g, ds), dtype, 0.3).to(cuda)
+    st0 = rand(gen, (B, nh, hd, ds), torch.float32, 0.2).to(cuda) \
+        if init else None
+    before = K.ssd_scan.launches
+    y, st = K.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=st0)
+    assert K.ssd_scan.launches == before + 1
+    yr, sr = K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, init_state=st0)
+    assert y.dtype == dtype and st.dtype == torch.float32
+    assert bool(torch.isfinite(y.float()).all())
+    for out, ref in ((y, yr), (st, sr)):
+        torch.testing.assert_close(out.float().cpu(), ref.float().cpu(),
+                                   atol=SCAN_TOL[dtype], rtol=SCAN_TOL[dtype])
+    y2, st2 = K.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=st0)
+    assert torch.equal(y, y2) and torch.equal(st, st2), \
+        "ssd_scan must be deterministic"
+
+
+def test_ssd_scan_refuses_what_it_does_not_take(cuda):
+    from repro_torch import kernels as K
+    x = torch.zeros((1, 8, 2, 48), device=cuda)          # hd 48
+    dt = torch.zeros((1, 8, 2), device=cuda)
+    A = -torch.ones((2,), device=cuda)
+    bc = torch.zeros((1, 8, 1, 16), device=cuda)
+    with pytest.raises(ValueError):
+        K.ssd_scan(x, dt, A, bc, bc, chunk=8)
+    x = torch.zeros((1, 8, 2, 32), device=cuda)
+    with pytest.raises(ValueError):                       # dt in bf16
+        K.ssd_scan(x, dt.bfloat16(), A, bc, bc, chunk=8)
+    bc = torch.zeros((1, 8, 1, 128), device=cuda)         # (hd 32, ds 128)
+    with pytest.raises(ValueError):                       # not built
+        K.ssd_scan(x, dt, A, bc, bc, chunk=8)

@@ -212,8 +212,11 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
     q = torch.zeros((1, 2, 32))
     kv = torch.zeros((1, 8, 1, 32))
     K.decode_attention(q, kv, kv, torch.tensor([3]))
+    xs = torch.zeros((1, 8, 2, 32))
+    bc = torch.zeros((1, 8, 1, 16))
+    K.ssd_scan(xs, torch.ones((1, 8, 2)), -torch.ones(2), bc, bc, chunk=4)
     assert K.launch_counts() == {"grouped_ffn": 0, "moe_ffn": 0,
-                                 "decode_attention": 0}
+                                 "decode_attention": 0, "ssd_scan": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

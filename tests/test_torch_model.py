@@ -48,7 +48,8 @@ def close(t, j, tol=TOL):
 
 # ----------------------------------------------------------- weights ------
 
-@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "llama3-8b"])
+@pytest.mark.parametrize("name", ["granite-moe-1b-a400m", "llama3-8b",
+                                  "mamba2-370m", "zamba2-1.2b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_params_keys_shapes_dtypes_match_jax(name, dtype):
     jp = JMD.init_params(small(JARCHS, name), jax.random.PRNGKey(0),
@@ -83,6 +84,31 @@ def test_bridge_round_trip_bf16():
         assert torch.equal(t, bridge.flatten(tp)[key])
 
 
+@pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-1.2b"])
+def test_bridge_round_trip_keeps_ssm_decay_params_f32(name):
+    """A bf16 SSM model keeps A_log, D and dt_bias in f32 through JAX ->
+    numpy -> torch -> numpy -> torch, and every leaf comes back equal."""
+    cfg = small(JARCHS, name)
+    jp = JMD.init_params(cfg, jax.random.PRNGKey(4), dtype=jnp.bfloat16)
+    tp = bridge.from_numpy(to_np(jp), device="cpu")
+    ssm = tp["layers"]["ssm"]
+    assert ssm["in_x"].dtype == torch.bfloat16
+    for key in ("A_log", "D", "dt_bias"):
+        assert ssm[key].dtype == torch.float32, key
+    back = bridge.flatten(bridge.to_numpy(tp))
+    for key, arr in bridge.flatten(to_np(jp)).items():
+        np.testing.assert_array_equal(back[key], arr.astype(np.float32))
+    again = bridge.from_numpy(bridge.unflatten(back), device="cpu",
+                              dtypes=bridge.dtypes_of(tp))
+    for key, t in bridge.flatten(again).items():
+        assert t.dtype == bridge.flatten(tp)[key].dtype, key
+        assert torch.equal(t, bridge.flatten(tp)[key])
+    own = bridge.init_params(small(ARCHS, name), dtype=torch.bfloat16,
+                             device="cpu")["layers"]["ssm"]
+    assert {k: own[k].dtype for k in ("A_log", "D", "dt_bias")} == \
+        dict.fromkeys(("A_log", "D", "dt_bias"), torch.float32)
+
+
 def test_model_module_owns_the_parameters(moe_pair):
     _, tcfg, _, tp = moe_pair
     m = TMD.Model(tcfg, tp)
@@ -92,9 +118,16 @@ def test_model_module_owns_the_parameters(moe_pair):
         assert torch.equal(t, bridge.flatten(tp)[key])
 
 
-def test_unported_families_raise():
+@pytest.mark.parametrize("name", ["paligemma-3b", "musicgen-large"])
+def test_unported_families_raise(name):
+    """The VLM and audio families are not ported: init and the model
+    refuse them."""
+    cfg = small(ARCHS, name)
+    assert cfg.family in ("vlm", "audio")
     with pytest.raises(NotImplementedError):
-        bridge.init_params(small(ARCHS, "mamba2-370m"), device="cpu")
+        bridge.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        TMD.init_cache(cfg, 1, 8, torch.float32)
 
 
 # ---------------------------------------------------- forward / decode ----

@@ -3,6 +3,8 @@ and prompts give the same greedy tokens through Engine.generate (policy
 off and XShare batch) and through the scheduler with mid-stream
 admission and eviction (FCFS and affinity admission). Inside the port:
 continuous equals lockstep, and the scheduler's invariants hold."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -108,6 +110,71 @@ def test_dense_window_model_matches_jax():
     np.testing.assert_array_equal(out, ref)
     lock, _ = teng.generate(prompts, 30, lockstep=True)
     np.testing.assert_array_equal(lock, out)
+
+
+# ------------------------------------------------ SSM and hybrid ------
+
+def ssm_small(archs, name):
+    """Reduced mamba2-370m, or zamba2-1.2b with three shared-block
+    applications (the last group ragged)."""
+    if name == "zamba2-1.2b":
+        return dataclasses.replace(
+            archs[name].reduced(num_layers=5, max_d_model=128,
+                                max_vocab=256), attn_every=2)
+    return small(archs, name)
+
+
+@pytest.fixture(scope="module", params=["mamba2-370m", "zamba2-1.2b"])
+def ssm(request):
+    """One engine per side; decode chunk 3 serves generate and the
+    scheduler alike (tokens do not depend on it)."""
+    name = request.param
+    jcfg, tcfg = ssm_small(JARCHS, name), ssm_small(ARCHS, name)
+    jp = j_init(jcfg, jax.random.PRNGKey(5))
+    tp = bridge.from_numpy(jax.tree_util.tree_map(np.asarray, jp),
+                           device="cpu")
+    return (tcfg, JEngine(jcfg, jp, cache_len=128, decode_chunk=3),
+            Engine(tcfg, tp, cache_len=128, decode_chunk=3, device="cpu"))
+
+
+def test_ssm_generate_matches_jax(ssm):
+    """3 prompts of 40 tokens, 12 new: the JAX engine's greedy tokens, no
+    router statistics, and continuous == lockstep."""
+    tcfg, jeng, teng = ssm
+    prompts = np.random.default_rng(2).integers(
+        0, tcfg.vocab_size, (3, 40)).astype(np.int32)
+    ref, jst = jeng.generate(prompts, 12)
+    out, tst = teng.generate(prompts, 12)
+    np.testing.assert_array_equal(out, ref)
+    assert tst.new_tokens == jst.new_tokens == 36
+    assert np.isnan(tst.mean_aux("activated_experts"))
+    lock, _ = teng.generate(prompts, 12, lockstep=True)
+    np.testing.assert_array_equal(lock, out)
+
+
+@pytest.mark.parametrize("admission", ["fcfs", "affinity"])
+def test_ssm_scheduler_midstream_matches_jax(ssm, admission):
+    """Two slots, four requests of different lengths, admitted into slots
+    freed mid-stream (affinity falls back to FCFS: no router): the JAX
+    scheduler's tokens, and each request's solo run."""
+    tcfg, jeng, teng = ssm
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, tcfg.vocab_size, size=s).astype(np.int32)
+               for s in (12, 12, 9, 15)]
+    lens = [6, 14, 10, 8]
+    runs = []
+    for eng in (jeng, teng):
+        sched = eng.make_scheduler(num_slots=2, admission=admission)
+        for p, n in zip(prompts, lens):
+            sched.submit(p, n)
+        states = sched.run()
+        assert all(s.status == "done" for s in states)
+        runs.append([np.stack(s.tokens) for s in states])
+    for a, b in zip(*runs):
+        np.testing.assert_array_equal(b, a)
+    for p, n, toks in zip(prompts, lens, runs[1]):
+        solo, _ = teng.generate(p[None], n)
+        np.testing.assert_array_equal(toks, solo[0])
 
 
 def test_fused_chunk_size_and_masked_slots(moe):
