@@ -17,7 +17,11 @@ each prints its wall time):
                 decode shapes; ssd_scan at mamba2-370m's and zamba2-1.2b's
                 prefill shapes, once more from a nonzero initial state,
                 and with dt ~ 0.01, where the state carried across chunks
-                dominates);
+                dominates, with its achieved TFLOP/s); moe_ffn under
+                policy off and batch, failing if one call runs more than
+                3 CUDA kernels (torch.profiler) or if, in bf16, its time
+                ratio batch / off exceeds the active-expert ratio by more
+                than 0.2;
   3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
                 shared-block application), prefill of 4 x 64 tokens
                 (granite-moe) or 4 x 300 (mamba2, zamba2) then 8 greedy
@@ -35,7 +39,11 @@ each prints its wall time):
                 once per shared-block application per decode round;
   5. profile    torch.profiler over a prefill and 8 decode steps of
                 granite-moe (8 x 128 tokens) and of mamba2-370m (8 x 500),
-                with ssd_scan's share of the mamba2 device time.
+                with ssd_scan's share of the mamba2 device time;
+  6. bf16 check mamba2-370m's prefill logits (all layers, 8 x 500) with
+                the ssd_scan kernel and with its plain version, both in
+                bf16, against f32: the kernel's logit error at most twice
+                the plain bf16 path's.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -99,7 +107,10 @@ CUDA = torch.device("cuda")
 
 def time_ms(fn, iters: int = 20, warmup: int = 3):
     """Median time of one call in ms (CUDA events), the L2 cache flushed
-    before each call so weights and KV come from device memory."""
+    before each call so weights and KV come from device memory. A spin
+    kernel (~0.5 ms) after the flush keeps the card busy while the host
+    enqueues the call, so a call shorter than its own host overhead is
+    timed by its device work, not by the host's."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
@@ -108,6 +119,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3):
     times = []
     for _ in range(iters):
         _FLUSH.zero_()
+        torch.cuda._sleep(1_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -123,6 +135,29 @@ def bound_ms(nbytes: float, flops: float, dtype):
     t_ops = flops / PEAK_FLOP_S[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def cuda_kernels(prof):
+    """The CUDA kernels a torch.profiler run saw, one averaged event per
+    kernel name (``count`` calls, ``self_device_time_total`` us)."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def cuda_kernels_of(fn):
+    """(count, {name: device us}) of the CUDA kernels one call of fn
+    runs, by torch.profiler, after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = cuda_kernels(prof)
+    return (sum(e.count for e in kern),
+            {e.key[:48]: e.self_device_time_total for e in kern})
 
 
 def max_err(a, b) -> float:
@@ -215,6 +250,7 @@ def kernel_cases(archs):
 
         # moe_ffn: one decode step's FFN, 8 tokens, policy off and batch
         xt = randn(8, d, dtype=dtype)
+        moe_cases = []
         for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)):
             _, _, combine, _ = route(moe_p, xt, cfg.moe, pol)
             active = (combine != 0).any(0)
@@ -229,15 +265,32 @@ def kernel_cases(archs):
             nbytes = (2 * xt.numel() * sz + combine.numel() * 4 + E
                       + n_act * 3 * d * f * sz)
             bms, by = bound_ms(nbytes, 6.0 * nnz * d * f, dtype)
-            out["moe_ffn"].append(dict(
+            n_kern, kern_us = cuda_kernels_of(
+                lambda: moe_ffn(*margs, max_active=ma))
+            moe_cases.append(dict(
                 dtype=str(dtype).replace("torch.", ""), policy=pol.mode,
                 shape=f"T=8 d={d} f={f} E={E} active={n_act} "
                       f"max_active={ma}",
+                active=n_act, max_active=ma, kernels_per_call=n_kern,
+                kernel_device_us=kern_us,
                 max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
                 ref_max_abs=float(ref.float().abs().max()),
                 ms=time_ms(lambda: moe_ffn(*margs, max_active=ma)),
                 plain_ms=time_ms(lambda: moe_ffn_plain(*margs)),
                 bound_ms=bms, bound_by=by, library_ms=None))
+            log(f"moe_ffn {dtype} policy={pol.mode}: active={n_act} "
+                f"max_active={ma}, {moe_cases[-1]['ms']:.4f} ms (bound "
+                f"{bms:.4f}), {n_kern} CUDA kernels per call: {kern_us}")
+        # XShare's saving at kernel level: time follows the selected set
+        off, bat = moe_cases
+        t_ratio, a_ratio = bat["ms"] / off["ms"], bat["active"] / off["active"]
+        log(f"moe_ffn {dtype}: time batch / off = {t_ratio:.3f}, active "
+            f"batch / off = {a_ratio:.3f} ({bat['active']} / "
+            f"{off['active']})")
+        for c in moe_cases:
+            c.update(time_ratio_batch_off=t_ratio,
+                     active_ratio_batch_off=a_ratio)
+        out["moe_ffn"] += moe_cases
 
         # decode_attention: 8 rows, ragged lengths, each path's cache
         for model, S in attn_paths:
@@ -278,6 +331,21 @@ def kernel_cases(archs):
     return out
 
 
+def check_moe_cases(cases):
+    """moe_ffn's design goals: at most 3 CUDA kernels per call, and in
+    bf16 a batch / off time ratio within 0.2 of the active-expert ratio
+    (time follows the selected set)."""
+    for c in cases:
+        if not 1 <= c["kernels_per_call"] <= 3:
+            fail(f"moe_ffn {c['dtype']} {c['policy']}: one call ran "
+                 f"{c['kernels_per_call']} CUDA kernels, want 1..3")
+        if c["dtype"] == "bfloat16" and c["time_ratio_batch_off"] > \
+                c["active_ratio_batch_off"] + 0.2:
+            fail(f"moe_ffn: time ratio {c['time_ratio_batch_off']:.3f} "
+                 f"exceeds the active ratio "
+                 f"{c['active_ratio_batch_off']:.3f} by more than 0.2")
+
+
 def ssd_work(B, S, nh, hd, g, ds, l, sz, init):
     """(bytes, operations) of one SSD scan: each input read once and each
     output written once; per (row, head) and chunk of n positions, the
@@ -300,7 +368,9 @@ def ssd_work(B, S, nh, hd, g, ds, l, sz, init):
 def ssd_cases(archs):
     """ssd_scan against ssd_scan_plain at the SSM main paths' prefill
     shapes (8 requests x 500 tokens, one group), f32 and bf16, from a
-    nonzero initial state in f32, and with dt ~ 0.01 in f32 and bf16.
+    nonzero initial state in f32, and with dt ~ 0.01 in f32 and bf16
+    (bf16 also from a nonzero initial state); each case prints its
+    achieved TFLOP/s (ssd_work's operations over its time).
     dt = softplus(randn + shift): shift 0 gives dt ~ 0.8, so a chunk
     decays by exp(-100) or less and almost nothing is carried to the
     next one; shift -5 gives dt in real Mamba2's range, where a chunk
@@ -326,7 +396,8 @@ def ssd_cases(archs):
                                    (torch.bfloat16, False, 0.0),
                                    (torch.float32, True, 0.0),
                                    (torch.float32, False, -5.0),
-                                   (torch.bfloat16, False, -5.0)):
+                                   (torch.bfloat16, False, -5.0),
+                                   (torch.bfloat16, True, -5.0)):
             sz = torch.finfo(dtype).bits // 8
             x = randn(B, S, nh, hd, scale=0.5, dtype=dtype)
             dt = torch.nn.functional.softplus(randn(B, S, nh) + shift)
@@ -343,6 +414,11 @@ def ssd_cases(archs):
                 fail(f"ssd_scan {name}: non-finite output")
             nbytes, flops = ssd_work(B, S, nh, hd, grp, ds, l, sz, init)
             bms, by = bound_ms(nbytes, flops, dtype)
+            ms = time_ms(lambda: ssd_scan(*args, **kw))
+            _, pass_us = cuda_kernels_of(lambda: ssd_scan(*args, **kw))
+            log(f"ssd_scan {name} {dtype} init={init} dt_shift={shift}: "
+                f"{ms:.4f} ms, {flops / ms / 1e9:.2f} TFLOP/s achieved; "
+                f"device us by pass {pass_us}")
             out.append(dict(
                 dtype=str(dtype).replace("torch.", ""), model=name,
                 init_state=init, dt_shift=shift,
@@ -356,7 +432,7 @@ def ssd_cases(archs):
                 ok=close(y, yr, dtype, SCAN_TOL)
                 and close(st, sr, torch.float32, SCAN_TOL),
                 ref_max_abs=float(yr.float().abs().max()),
-                ms=time_ms(lambda: ssd_scan(*args, **kw)),
+                ms=ms, tflops=flops / ms / 1e9, pass_device_us=pass_us,
                 plain_ms=time_ms(lambda: ssd_scan_plain(*args, **kw),
                                  iters=5),
                 bound_ms=bms, bound_by=by, library_ms=None,
@@ -405,6 +481,56 @@ def path_parity(cfg, prompt_len: int, cache_len: int):
     if not same or err > PARITY_LOGIT_TOL:
         fail(f"parity {cfg.name}: CPU and GPU disagree")
     return dict(tokens_equal=same, max_abs_logit_diff=err)
+
+
+# ------------------------------------------------- bf16 model check ---
+
+def ssm_bf16_check(cfg, params, prompts, *, cache_len: int):
+    """The bf16 scan's rounding seen past every layer: prefill logits of
+    the full model at its main-path shape, with ssd_scan's kernel and
+    with ssd_scan_plain in its place (same bf16 weights), each against
+    the same weights in f32 through the plain scan. The kernel rounds
+    the decay-masked scores and the state to bf16 for its products; it
+    must stay as close to the f32 logits as the bf16 path's own
+    rounding allows: its max |logit error| at most twice the plain bf16
+    path's."""
+    from repro_torch.kernels import ssd_scan_plain
+    from repro_torch.models import ssm
+    from repro_torch.models.model import prefill
+
+    toks = torch.as_tensor(prompts, device=CUDA)
+
+    def logits(p):
+        lg, _, _ = prefill(cfg, p, toks, cache_len=cache_len,
+                           capacity_factor=8.0)
+        return lg[:, :cfg.vocab_size].float()
+
+    def to_f32(p):
+        return {k: to_f32(v) if isinstance(v, dict) else v.float()
+                for k, v in p.items()}
+
+    kernel = logits(params)
+    kernel_scan, ssm.ssd_scan = ssm.ssd_scan, ssd_scan_plain
+    plain = logits(params)
+    ref = logits(to_f32(params))
+    ssm.ssd_scan = kernel_scan
+    if not torch.isfinite(kernel).all():
+        fail(f"bf16 check {cfg.name}: non-finite kernel logits")
+    err_k, err_p = max_err(kernel, ref), max_err(plain, ref)
+    res = dict(max_abs_err_kernel=err_k, max_abs_err_plain=err_p,
+               ratio=err_k / err_p, max_abs_kernel_vs_plain=max_err(
+                   kernel, plain),
+               ref_max_abs=float(ref.abs().max()),
+               argmax_equal_kernel=int((kernel.argmax(-1)
+                                        == ref.argmax(-1)).sum()),
+               argmax_equal_plain=int((plain.argmax(-1)
+                                       == ref.argmax(-1)).sum()),
+               rows=int(ref.shape[0]))
+    log(f"bf16 check {cfg.name}: {json.dumps(res)}")
+    if err_k > 2 * err_p:
+        fail(f"bf16 check {cfg.name}: kernel logit error {err_k:.3e} > "
+             f"2 x the plain bf16 path's {err_p:.3e}")
+    return res
 
 
 # --------------------------------------------------------- main path ---
@@ -498,7 +624,6 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
     wall per call (no profiler), then torch.profiler over the same calls
     for the device's busy time by kernel. Device numbers are "not
     measured" if the profiler sees no CUDA kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models.model import prefill
@@ -542,8 +667,7 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
             runs.append((wall, prof))
         per = 1 if name == "prefill" else steps
         wall_ms = runs[0][0] * 1e3 / per
-        kern = [e for e in runs[1][1].key_averages()
-                if e.device_type == DeviceType.CUDA]
+        kern = cuda_kernels(runs[1][1])
         busy_ms = sum(e.self_device_time_total for e in kern) / 1e3 / per
         ssd_ms = sum(e.self_device_time_total for e in kern
                      if any(k in e.key for k in SSD_KERNELS)) / 1e3 / per
@@ -601,6 +725,7 @@ def main() -> int:
             log(f"kernel {n}: {json.dumps(c)}")
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
+    check_moe_cases(cases["moe_ffn"])
 
     with Phase("parity"), torch.no_grad():
         parity = {ARCH: path_parity(cfg, 64, 128)}
@@ -630,6 +755,9 @@ def main() -> int:
             with Phase(f"profile {name}"), torch.no_grad():
                 prof[name] = profile_phase(scfg, params, prompts,
                                            cache_len=1024)
+            with Phase(f"bf16 check {name}"), torch.no_grad():
+                bf16_check = ssm_bf16_check(scfg, params, prompts,
+                                            cache_len=1024)
         del params
         torch.cuda.empty_cache()
 
@@ -662,7 +790,8 @@ def main() -> int:
             tol_f32=tol[torch.float32], cases=cs))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": line, "main_path": results,
-                      "parity": parity, "profile": prof, "card": card}),
+                      "parity": parity, "bf16_check": bf16_check,
+                      "profile": prof, "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

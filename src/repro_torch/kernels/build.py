@@ -35,9 +35,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "grouped_ffn_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "grouped_ffn_down": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "moe_ffn_up": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "moe_ffn_down": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "moe_ffn_reduce": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "moe_ffn": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 8 + [_P],
     "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          ctypes.c_float, _I, _P],
     "ssd_scan": [_P] * 10 + [_I] * 8 + [_P],

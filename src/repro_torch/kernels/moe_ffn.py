@@ -46,6 +46,14 @@ def moe_ffn_plain(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return torch.einsum("etd,et->td", y_e, w).to(x.dtype)
 
 
+def _splits(d: int, f: int) -> tuple:
+    """How many blocks split the up pass's d and the down pass's f: about
+    512 rows of d and 256 of f each, so that no block walks a long
+    reduction alone and granite-moe's shape gives ~450 up and ~900 down
+    blocks for 132 SMs."""
+    return max(1, (d + 256) // 512), max(1, (f + 128) // 256)
+
+
 def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             w2: torch.Tensor, combine: torch.Tensor, active: torch.Tensor,
             *, max_active: int) -> torch.Tensor:
@@ -54,8 +62,12 @@ def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
     ``max_active`` must bound ``active.sum()`` (the policy's budget,
     ``models.moe.policy_max_active``): the kernel runs the first
-    max_active active experts. Checking that on the device would cost a
-    host sync per layer; the tests hold every policy to it instead.
+    max_active active experts in index order. Each block of the kernel
+    finds its slot's expert id from ``active`` itself, so a call with an
+    f32 ``combine`` (routing's, a column slice, is taken as it is) is at
+    most three kernel launches and no other device op, and no host sync.
+    Checking the bound on the device would cost a host sync per layer;
+    the tests hold every policy to it instead.
     """
     if x.device.type == "cpu":
         return moe_ffn_plain(x, w1, w3, w2, combine, active)
@@ -63,36 +75,36 @@ def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     T, d = x.shape
     E, _, f = w1.shape
     _require(1 <= T <= MAX_TOKENS, f"moe_ffn: T={T} outside 1..{MAX_TOKENS}")
+    _require(d % 8 == 0 and f % 8 == 0,
+             f"moe_ffn: d={d} and f={f} must be multiples of 8")
     _require(w1.shape == w3.shape == (E, d, f) and w2.shape == (E, f, d),
              "moe_ffn: weight shapes")
     _require(combine.shape == (T, E) and active.shape == (E,),
              "moe_ffn: combine / active shapes")
     _require(x.dtype == w1.dtype == w3.dtype == w2.dtype,
              "moe_ffn: x and weights must share a dtype")
-    combine = combine.float().contiguous()
+    _require(active.dtype == torch.bool, "moe_ffn: active must be bool")
+    combine = combine.float()
+    if combine.stride(1) != 1:   # a row stride is taken, no copy
+        combine = combine.contiguous()
+    _require(combine.device == x.device, f"moe_ffn: combine on "
+             f"{combine.device}, want {x.device}")
     _check_cuda("moe_ffn", x.device, x=x, w1=w1, w3=w3, w2=w2,
-                combine=combine)
+                active=active)
+    for k, t in dict(x=x, w1=w1, w3=w3, w2=w2).items():
+        _require(t.data_ptr() % 16 == 0, f"moe_ffn: {k} not 16-byte aligned")
     slots = max(1, min(int(max_active), E))
-    # selected experts first, in index order; no host sync
-    ids = torch.argsort((~active).to(torch.int32), stable=True)[:slots]
-    ids = ids.to(torch.int32).contiguous()
-    valid = (torch.arange(slots, device=x.device)
-             < active.sum()).to(torch.int32)
-    h = torch.empty((slots, T, f), dtype=torch.float32, device=x.device)
-    part = torch.empty((slots, T, d), dtype=torch.float32, device=x.device)
+    ks, fs = _splits(d, f)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    part_up = torch.empty((slots, ks, 2, T, f), **f32)
+    part_down = torch.empty((slots, fs, T, d), **f32)
     y = torch.empty((T, d), dtype=x.dtype, device=x.device)
-    lib, dt = build.lib(), build.dtype_code(x)
-    stream = build.stream_ptr(x.device)
-    build.check(lib.moe_ffn_up(
-        x.data_ptr(), w1.data_ptr(), w3.data_ptr(), combine.data_ptr(),
-        ids.data_ptr(), valid.data_ptr(), h.data_ptr(),
-        T, d, f, E, slots, dt, stream), "moe_ffn_up")
-    build.check(lib.moe_ffn_down(
-        h.data_ptr(), w2.data_ptr(), ids.data_ptr(), valid.data_ptr(),
-        part.data_ptr(), T, d, f, slots, dt, stream), "moe_ffn_down")
-    build.check(lib.moe_ffn_reduce(
-        part.data_ptr(), valid.data_ptr(), y.data_ptr(), slots, T, d, dt,
-        stream), "moe_ffn_reduce")
+    build.check(build.lib().moe_ffn(
+        x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        combine.data_ptr(), combine.stride(0), active.data_ptr(),
+        part_up.data_ptr(), part_down.data_ptr(), y.data_ptr(), T, d, f, E,
+        slots, ks, fs, build.dtype_code(x), build.stream_ptr(x.device)),
+        "moe_ffn")
     moe_ffn.launches += 1
     return y
 

@@ -87,7 +87,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD scan; see ``ssd_scan_plain`` for the shapes. On a CUDA
     device: x, Bm, Cm f32 or bf16 (one dtype), dt, A and init_state f32,
-    hd in (32, 64), ds in (16, 32, 64, 128), all contiguous."""
+    (hd, ds) one of ``_SHAPES``, all contiguous; x, Bm, Cm and init_state
+    16-byte aligned (the kernel reads them in 16-byte vectors)."""
     if x.device.type == "cpu":
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
                               init_state=init_state)
@@ -119,6 +120,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be a contiguous "
                              f"tensor on {x.device}")
+        if name not in ("dt", "A") and t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name} not 16-byte aligned")
     l = min(chunk, S)
     nc = -(-S // l)
     f32 = dict(dtype=torch.float32, device=x.device)

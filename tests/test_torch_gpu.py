@@ -24,6 +24,18 @@ def cuda():
     return torch.device("cuda")
 
 
+def _chip_smoke():
+    """The repository's chip_smoke.py as a module: its profiler count of
+    the CUDA kernels one call runs is the one the tests hold too."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def rand(g, shape, dtype, scale=1.0):
     return (torch.randn(shape, generator=g) * scale).to(dtype)
 
@@ -79,6 +91,66 @@ def test_moe_ffn_kernel(cuda, dtype, T, d, E, f, n_act, max_active):
     assert torch.equal(out, again), "moe_ffn must be deterministic"
 
 
+def _moe_case(g, dev, dtype, T, d, E, f, on):
+    x = rand(g, (T, d), dtype).to(dev)
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.05).to(dev) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.05).to(dev)
+    active = torch.zeros(E, dtype=torch.bool)
+    active[list(on)] = True
+    combine = torch.rand((T, E), generator=g) * active[None]
+    return x, w1, w3, w2, combine.to(dev), active.to(dev)
+
+
+# the kernel finds each slot's expert from `active` itself (the s-th set
+# entry): scattered ids over a wide E, a full budget, the first and the
+# last expert alone, E = 256 with one token, and 32 tokens at granite's
+# widths
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,E,f,on,max_active", [
+    (8, 64, 128, 64, tuple(range(1, 128, 3))[:40], 48),
+    (8, 128, 32, 64, tuple(range(0, 32, 2)), 16),
+    (4, 64, 32, 128, (0,), 4),
+    (4, 64, 32, 128, (31,), 4),
+    (1, 64, 256, 64, (3, 77, 128, 200, 255), 8),
+    (32, 1024, 8, 512, (1, 2, 5, 7), 8)],
+    ids=["E128-scattered", "full-budget", "only-first", "only-last",
+         "E256-T1", "T32-granite-widths"])
+def test_moe_ffn_kernel_finds_experts(cuda, dtype, T, d, E, f, on,
+                                      max_active):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(E + len(on))
+    args = _moe_case(g, cuda, dtype, T, d, E, f, on)
+    out = K.moe_ffn(*args, max_active=max_active)
+    check(out, K.moe_ffn_plain(*args), dtype)
+    assert torch.equal(out, K.moe_ffn(*args, max_active=max_active)), \
+        "moe_ffn must be deterministic"
+
+
+def test_moe_ffn_one_call_is_at_most_three_kernels(cuda):
+    from repro_torch import kernels as K
+    cuda_kernels_of = _chip_smoke().cuda_kernels_of
+    g = torch.Generator().manual_seed(0)
+    x, w1, w3, w2, combine, active = _moe_case(
+        g, cuda, torch.bfloat16, 8, 1024, 32, 512, range(0, 32, 3))
+    # routing hands over a column slice of a (T, E + 1) matrix
+    wide = torch.zeros((8, 33), device=cuda)
+    wide[:, :32] = combine
+    args = (x, w1, w3, w2, wide[:, :32], active)
+    n, per_kernel = cuda_kernels_of(lambda: K.moe_ffn(*args, max_active=16))
+    assert 1 <= n <= 3, f"one moe_ffn call ran {n} CUDA kernels: " \
+        f"{per_kernel}"
+
+
+def test_moe_ffn_refuses_widths_not_a_multiple_of_8(cuda):
+    from repro_torch import kernels as K
+    x = torch.zeros((4, 60), device=cuda)
+    w = torch.zeros((2, 60, 60), device=cuda)
+    with pytest.raises(ValueError):
+        K.moe_ffn(x, w, w, w, torch.zeros((4, 2), device=cuda),
+                  torch.ones(2, dtype=torch.bool, device=cuda),
+                  max_active=2)
+
+
 def test_moe_ffn_refuses_more_than_32_tokens(cuda):
     from repro_torch import kernels as K
     x = torch.zeros((33, 64), device=cuda)
@@ -130,6 +202,7 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
     (1, 37, 2, 32, 2, 16, 256, True),     # one chunk shorter than chunk
     (8, 500, 32, 64, 1, 128, 256, False),  # mamba2-370m's prefill
     (8, 500, 64, 64, 1, 64, 128, False),   # zamba2-1.2b's prefill
+    (1, 129, 4, 64, 1, 64, 128, True),     # a last chunk of 1 position
 ])
 def test_ssd_scan_kernel(cuda, dtype, dt_shift, B, S, nh, hd, g, ds, chunk,
                          init):
@@ -157,6 +230,33 @@ def test_ssd_scan_kernel(cuda, dtype, dt_shift, B, S, nh, hd, g, ds, chunk,
         "ssd_scan must be deterministic"
 
 
+# a large entering state (10x the usual scale): its term goes through the
+# tensor cores as a bf16 hi + lo pair and must stay within the tolerance
+@pytest.mark.parametrize("dt_shift", [0.0, -5.0], ids=["dt0.8", "dt0.01"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,g,ds,chunk", [
+    (2, 300, 4, 64, 1, 128, 256), (2, 250, 8, 64, 2, 64, 128),
+    (1, 37, 2, 32, 2, 16, 256)])
+def test_ssd_scan_kernel_large_state(cuda, dtype, dt_shift, B, S, nh, hd, g,
+                                     ds, chunk):
+    from repro_torch import kernels as K
+    gen = torch.Generator().manual_seed(S * nh)
+    x = rand(gen, (B, S, nh, hd), dtype, 0.5).to(cuda)
+    dt = torch.nn.functional.softplus(
+        rand(gen, (B, S, nh), torch.float32) + dt_shift).to(cuda)
+    A = (-torch.exp(rand(gen, (nh,), torch.float32, 0.3))).to(cuda)
+    Bm = rand(gen, (B, S, g, ds), dtype, 0.3).to(cuda)
+    Cm = rand(gen, (B, S, g, ds), dtype, 0.3).to(cuda)
+    st0 = rand(gen, (B, nh, hd, ds), torch.float32, 2.0).to(cuda)
+    y, st = K.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=st0)
+    yr, sr = K.ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk, init_state=st0)
+    for out, ref in ((y, yr), (st, sr)):
+        torch.testing.assert_close(out.float().cpu(), ref.float().cpu(),
+                                   atol=SCAN_TOL[dtype], rtol=SCAN_TOL[dtype])
+    y2, st2 = K.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, init_state=st0)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
 def test_ssd_scan_refuses_what_it_does_not_take(cuda):
     from repro_torch import kernels as K
     x = torch.zeros((1, 8, 2, 48), device=cuda)          # hd 48
@@ -171,3 +271,28 @@ def test_ssd_scan_refuses_what_it_does_not_take(cuda):
     bc = torch.zeros((1, 8, 1, 128), device=cuda)         # (hd 32, ds 128)
     with pytest.raises(ValueError):                       # not built
         K.ssd_scan(x, dt, A, bc, bc, chunk=8)
+
+
+def _misaligned(shape, dtype, device):
+    """A contiguous tensor whose storage starts one element past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 1, dtype=dtype, device=device)[1:].view(shape)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["x", "Bm", "Cm", "init_state"])
+def test_ssd_scan_refuses_misaligned_tensors(cuda, dtype, name):
+    from repro_torch import kernels as K
+    B, S, nh, hd, ds = 1, 40, 2, 64, 64
+    shapes = dict(x=(B, S, nh, hd), Bm=(B, S, 1, ds), Cm=(B, S, 1, ds),
+                  init_state=(B, nh, hd, ds))
+    t = {k: torch.zeros(v, dtype=torch.float32 if k == "init_state"
+                        else dtype, device=cuda) for k, v in shapes.items()}
+    t[name] = _misaligned(shapes[name], t[name].dtype, cuda)
+    assert t[name].is_contiguous() and t[name].data_ptr() % 16
+    dt = torch.full((B, S, nh), 0.5, device=cuda)
+    A = -torch.ones((nh,), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.ssd_scan(t["x"], dt, A, t["Bm"], t["Cm"], chunk=32,
+                   init_state=t["init_state"])
