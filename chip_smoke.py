@@ -14,14 +14,19 @@ each prints its wall time):
                 and bf16, timed with CUDA events beside its bound and a
                 PyTorch library call where one computes the same thing
                 (decode_attention at granite-moe's and zamba2-1.2b's
-                decode shapes; ssd_scan at mamba2-370m's and zamba2-1.2b's
-                prefill shapes, once more from a nonzero initial state,
-                and with dt ~ 0.01, where the state carried across chunks
-                dominates, with its achieved TFLOP/s); moe_ffn under
-                policy off and batch, failing if one call runs more than
-                3 CUDA kernels (torch.profiler) or if, in bf16, its time
-                ratio batch / off exceeds the active-expert ratio by more
-                than 0.2;
+                decode shapes, with ragged lengths and with the lengths
+                each main path serves, its time over SDPA's printed;
+                grouped_ffn at granite's prefill with its achieved
+                TFLOP/s, beside torch._grouped_mm where the card's
+                PyTorch has it; ssd_scan at mamba2-370m's and
+                zamba2-1.2b's prefill shapes, once more from a nonzero
+                initial state, and with dt ~ 0.01, where the state
+                carried across chunks dominates, with its achieved
+                TFLOP/s); moe_ffn under policy off and batch, failing if
+                one call runs more than 3 CUDA kernels (torch.profiler)
+                or if, in bf16, its time ratio batch / off exceeds the
+                active-expert ratio by more than 0.2; failing if one
+                decode_attention or grouped_ffn call runs more than 2;
   3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
                 shared-block application), prefill of 4 x 64 tokens
                 (granite-moe) or 4 x 300 (mamba2, zamba2) then 8 greedy
@@ -40,10 +45,12 @@ each prints its wall time):
   5. profile    torch.profiler over a prefill and 8 decode steps of
                 granite-moe (8 x 128 tokens) and of mamba2-370m (8 x 500),
                 with ssd_scan's share of the mamba2 device time;
-  6. bf16 check mamba2-370m's prefill logits (all layers, 8 x 500) with
-                the ssd_scan kernel and with its plain version, both in
-                bf16, against f32: the kernel's logit error at most twice
-                the plain bf16 path's.
+  6. bf16 check granite-moe's prefill logits (24 layers, 8 x 128) with
+                the grouped_ffn kernel, and mamba2-370m's (48 layers,
+                8 x 500) with the ssd_scan kernel, each also with the
+                kernel's plain version, all in bf16, against f32: the
+                kernel's logit error at most twice the plain bf16
+                path's.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -52,6 +59,7 @@ when CUDA is absent. Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import subprocess
 import sys
@@ -80,6 +88,11 @@ ARCH = "granite-moe-1b-a400m"
 SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
 SSD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")   # the three passes of ssd_scan
+# every __global__ function of src/repro_torch/kernels/csrc (name prefixes)
+PORT_KERNELS = SSD_KERNELS + ("grouped_tc_kernel", "grouped_f32_kernel",
+                              "moe_up_kernel", "moe_down_kernel",
+                              "moe_reduce_kernel", "decode_split_kernel",
+                              "decode_merge_kernel")
 
 
 def log(*a):
@@ -156,8 +169,10 @@ def cuda_kernels_of(fn):
         fn()
         torch.cuda.synchronize()
     kern = cuda_kernels(prof)
-    return (sum(e.count for e in kern),
-            {e.key[:48]: e.self_device_time_total for e in kern})
+    us = {}
+    for e in kern:   # names cut to 72 characters keep template arguments
+        us[e.key[:72]] = us.get(e.key[:72], 0.0) + e.self_device_time_total
+    return sum(e.count for e in kern), us
 
 
 def max_err(a, b) -> float:
@@ -205,8 +220,9 @@ def kernel_cases(archs):
     cfg = archs[ARCH]
     d, E, f, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert, \
         cfg.moe.top_k
-    # (model, cache length) of each main path that runs decode_attention
-    attn_paths = ((ARCH, 512), ("zamba2-1.2b", 1024))
+    # (model, cache length, lengths served) of each main path that runs
+    # decode_attention: 128 or 500 prompt tokens, then up to 32 new
+    attn_paths = ((ARCH, 512, (129, 160)), ("zamba2-1.2b", 1024, (501, 532)))
     out = {"grouped_ffn": [], "moe_ffn": [], "decode_attention": []}
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
@@ -237,16 +253,27 @@ def kernel_cases(archs):
                   * d * sz + occupied * 3 * d * f * sz
                   + 2 * plan.tile_eid.numel() * 4)
         bms, by = bound_ms(nbytes, 6.0 * n_rows * d * f, dtype)
-        out["grouped_ffn"].append(dict(
+        n_kern, kern_us = cuda_kernels_of(
+            lambda: grouped_ffn(*args, block_t=plan.block_t))
+        case = dict(
             dtype=str(dtype).replace("torch.", ""),
             shape=f"P={xs.shape[0]} d={d} f={f} E={E} "
                   f"block_t={plan.block_t} rows={n_rows}",
             max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
             ref_max_abs=float(ref.float().abs().max()),
+            kernels_per_call=n_kern, kernel_device_us=kern_us,
             ms=time_ms(lambda: grouped_ffn(*args, block_t=plan.block_t)),
             plain_ms=time_ms(lambda: grouped_ffn_plain(
                 *args, block_t=plan.block_t), iters=5),
-            bound_ms=bms, bound_by=by, library_ms=None))
+            bound_ms=bms, bound_by=by, library_ms=None)
+        case["tflops"] = 6.0 * n_rows * d * f / case["ms"] / 1e9
+        if dtype == torch.bfloat16:
+            case.update(grouped_mm_yardstick(plan, *args[:4]))
+        log(f"grouped_ffn {dtype}: {case['ms']:.4f} ms (bound "
+            f"{bms:.4f}), {case['tflops']:.1f} TFLOP/s on the real rows, "
+            f"{n_kern} CUDA kernels per call: {kern_us}; torch._grouped_mm "
+            f"yardstick (several calls): {case.get('grouped_mm_ms')}")
+        out["grouped_ffn"].append(case)
 
         # moe_ffn: one decode step's FFN, 8 tokens, policy off and batch
         xt = randn(8, d, dtype=dtype)
@@ -292,14 +319,17 @@ def kernel_cases(archs):
                      active_ratio_batch_off=a_ratio)
         out["moe_ffn"] += moe_cases
 
-        # decode_attention: 8 rows, ragged lengths, each path's cache
-        for model, S in attn_paths:
+        # decode_attention: 8 rows, each path's cache, ragged lengths and
+        # the lengths its main path serves (prompt + up to 32 new)
+        for (model, S, served), lengths_kind in itertools.product(
+                attn_paths, ("ragged", "served")):
             a, B = archs[model].attn, 8
             q = randn(B, a.num_heads, a.head_dim, dtype=dtype)
             kc = randn(B, S, a.num_kv_heads, a.head_dim, dtype=dtype)
             vc = randn(B, S, a.num_kv_heads, a.head_dim, dtype=dtype)
-            lengths = torch.randint(1, S + 1, (B,), generator=g, device=dev,
-                                    dtype=torch.int32)
+            lo, hi = (1, S) if lengths_kind == "ragged" else served
+            lengths = torch.randint(lo, hi + 1, (B,), generator=g,
+                                    device=dev, dtype=torch.int32)
             ker = decode_attention(q, kc, vc, lengths)
             ref = decode_attention_plain(q, kc, vc, lengths)
             mask = (torch.arange(S, device=dev)[None, :]
@@ -315,17 +345,27 @@ def kernel_cases(archs):
                       * a.head_dim * sz + B * 4)
             bms, by = bound_ms(nbytes, 4.0 * live * a.num_heads
                                * a.head_dim, dtype)
-            out["decode_attention"].append(dict(
+            n_kern, kern_us = cuda_kernels_of(
+                lambda: decode_attention(q, kc, vc, lengths))
+            case = dict(
                 dtype=str(dtype).replace("torch.", ""), model=model,
+                lengths=f"{lengths_kind} {lo}-{hi}",
                 shape=f"B={B} S={S} H={a.num_heads} Hkv={a.num_kv_heads} "
                       f"dh={a.head_dim} live={live}",
                 max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
                 ref_max_abs=float(ref.float().abs().max()),
                 library_max_abs_err=lib_err,
+                kernels_per_call=n_kern, kernel_device_us=kern_us,
                 ms=time_ms(lambda: decode_attention(q, kc, vc, lengths)),
                 plain_ms=time_ms(lambda: decode_attention_plain(
                     q, kc, vc, lengths)),
-                bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa)))
+                bound_ms=bms, bound_by=by, library_ms=time_ms(sdpa))
+            case["ms_over_sdpa"] = case["ms"] / case["library_ms"]
+            log(f"decode_attention {dtype} {model} lengths {lo}-{hi}: "
+                f"{case['ms']:.4f} ms, SDPA {case['library_ms']:.4f} ms, "
+                f"kernel / SDPA = {case['ms_over_sdpa']:.3f} (bound "
+                f"{bms:.4f}), {n_kern} CUDA kernels per call")
+            out["decode_attention"].append(case)
             del q, kc, vc, kt, vt
         del w1, w3, w2
     return out
@@ -344,6 +384,44 @@ def check_moe_cases(cases):
             fail(f"moe_ffn: time ratio {c['time_ratio_batch_off']:.3f} "
                  f"exceeds the active ratio "
                  f"{c['active_ratio_batch_off']:.3f} by more than 0.2")
+
+
+def grouped_mm_yardstick(plan, xs, w1, w3, w2):
+    """grouped_ffn's two products through torch._grouped_mm on the same
+    padded rows (each expert's segment, padded to block_t, as one group),
+    with silu·g between them: several calls, a yardstick of speed only,
+    used nowhere in the port and kept out of the library column."""
+    if not hasattr(torch, "_grouped_mm"):
+        return dict(grouped_mm_ms=None, grouped_mm_note="no torch._grouped_mm")
+    bt = plan.block_t
+    offs = torch.cumsum((plan.counts + bt - 1) // bt * bt, 0,
+                        dtype=torch.int32)
+
+    def run():
+        h = torch.nn.functional.silu(torch._grouped_mm(xs, w1, offs=offs)) \
+            * torch._grouped_mm(xs, w3, offs=offs)
+        return torch._grouped_mm(h, w2, offs=offs)
+    from repro_torch.kernels import grouped_ffn_plain
+    try:
+        rows = int(offs[-1])
+        ref = grouped_ffn_plain(xs, w1, w3, w2, plan.tile_eid,
+                                plan.tile_valid, block_t=bt)
+        return dict(grouped_mm_ms=time_ms(run),
+                    grouped_mm_max_abs_err=max_err(run()[:rows], ref[:rows]),
+                    grouped_mm_note="3 torch._grouped_mm calls + silu, mul")
+    except (RuntimeError, TypeError) as e:   # not built for this card
+        return dict(grouped_mm_ms=None, grouped_mm_note=str(e)[:200])
+
+
+def check_kernel_counts(cases):
+    """decode_attention's and grouped_ffn's design: at most 2 CUDA
+    kernels per call (split + merge; up + down)."""
+    for name in ("decode_attention", "grouped_ffn"):
+        for c in cases[name]:
+            if not 1 <= c["kernels_per_call"] <= 2:
+                fail(f"{name} {c['dtype']} {c.get('model', '')}: one call "
+                     f"ran {c['kernels_per_call']} CUDA kernels, want 1..2: "
+                     f"{c['kernel_device_us']}")
 
 
 def ssd_work(B, S, nh, hd, g, ds, l, sz, init):
@@ -485,17 +563,17 @@ def path_parity(cfg, prompt_len: int, cache_len: int):
 
 # ------------------------------------------------- bf16 model check ---
 
-def ssm_bf16_check(cfg, params, prompts, *, cache_len: int):
-    """The bf16 scan's rounding seen past every layer: prefill logits of
-    the full model at its main-path shape, with ssd_scan's kernel and
-    with ssd_scan_plain in its place (same bf16 weights), each against
-    the same weights in f32 through the plain scan. The kernel rounds
-    the decay-masked scores and the state to bf16 for its products; it
-    must stay as close to the f32 logits as the bf16 path's own
-    rounding allows: its max |logit error| at most twice the plain bf16
-    path's."""
-    from repro_torch.kernels import ssd_scan_plain
-    from repro_torch.models import ssm
+def bf16_model_check(cfg, params, prompts, *, cache_len: int, module,
+                     attr: str, plain):
+    """One kernel's bf16 rounding seen past every layer: prefill logits
+    of the full model at its main-path shape, with the kernel and with
+    its plain version in its place (``module.attr`` swapped for
+    ``plain``; same bf16 weights), each against the same weights in f32
+    through the plain version. The kernel must stay as close to the f32
+    logits as the bf16 path's own rounding allows: its max |logit error|
+    at most twice the plain bf16 path's. mamba2: ssd_scan rounds the
+    decay-masked scores and the state to bf16 for its products;
+    granite-moe: grouped_ffn rounds H to bf16 between its products."""
     from repro_torch.models.model import prefill
 
     toks = torch.as_tensor(prompts, device=CUDA)
@@ -510,26 +588,29 @@ def ssm_bf16_check(cfg, params, prompts, *, cache_len: int):
                 for k, v in p.items()}
 
     kernel = logits(params)
-    kernel_scan, ssm.ssd_scan = ssm.ssd_scan, ssd_scan_plain
-    plain = logits(params)
-    ref = logits(to_f32(params))
-    ssm.ssd_scan = kernel_scan
+    kernel_fn = getattr(module, attr)
+    setattr(module, attr, plain)
+    try:
+        plain_lg = logits(params)
+        ref = logits(to_f32(params))
+    finally:
+        setattr(module, attr, kernel_fn)
     if not torch.isfinite(kernel).all():
         fail(f"bf16 check {cfg.name}: non-finite kernel logits")
-    err_k, err_p = max_err(kernel, ref), max_err(plain, ref)
-    res = dict(max_abs_err_kernel=err_k, max_abs_err_plain=err_p,
-               ratio=err_k / err_p, max_abs_kernel_vs_plain=max_err(
-                   kernel, plain),
+    err_k, err_p = max_err(kernel, ref), max_err(plain_lg, ref)
+    res = dict(kernel=attr, max_abs_err_kernel=err_k,
+               max_abs_err_plain=err_p, ratio=err_k / err_p,
+               max_abs_kernel_vs_plain=max_err(kernel, plain_lg),
                ref_max_abs=float(ref.abs().max()),
                argmax_equal_kernel=int((kernel.argmax(-1)
                                         == ref.argmax(-1)).sum()),
-               argmax_equal_plain=int((plain.argmax(-1)
+               argmax_equal_plain=int((plain_lg.argmax(-1)
                                        == ref.argmax(-1)).sum()),
                rows=int(ref.shape[0]))
     log(f"bf16 check {cfg.name}: {json.dumps(res)}")
     if err_k > 2 * err_p:
-        fail(f"bf16 check {cfg.name}: kernel logit error {err_k:.3e} > "
-             f"2 x the plain bf16 path's {err_p:.3e}")
+        fail(f"bf16 check {cfg.name}: {attr} kernel logit error "
+             f"{err_k:.3e} > 2 x the plain bf16 path's {err_p:.3e}")
     return res
 
 
@@ -672,6 +753,13 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
         ssd_ms = sum(e.self_device_time_total for e in kern
                      if any(k in e.key for k in SSD_KERNELS)) / 1e3 / per
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        ours = {}   # the port's kernels (csrc/*.cu), by name and template
+        for e in kern:
+            kname = e.key.replace("(anonymous namespace)::", "").split(
+                "(")[0].removeprefix("void ")
+            if kname.startswith(PORT_KERNELS):
+                ours[kname] = ours.get(kname, 0.0) + \
+                    e.self_device_time_total / 1e3 / per
         out[name] = dict(
             wall_ms=wall_ms, profiled_wall_ms=runs[1][0] * 1e3 / per,
             device_busy_ms=busy_ms if kern else "not measured",
@@ -679,7 +767,8 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
             if kern else "not measured",
             kernels_per_call=sum(e.count for e in kern) / per,
             top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3
-                      / per, calls=e.count / per) for e in top])
+                      / per, calls=e.count / per) for e in top],
+            port_kernels_ms=ours)
         if cfg.ssm is not None:
             out[name].update(ssd_scan_ms=ssd_ms if kern else "not measured",
                              ssd_scan_share_of_busy=ssd_ms / busy_ms
@@ -726,6 +815,7 @@ def main() -> int:
     if bad:
         fail(f"kernels disagree with their plain versions: {bad}")
     check_moe_cases(cases["moe_ffn"])
+    check_kernel_counts(cases)
 
     with Phase("parity"), torch.no_grad():
         parity = {ARCH: path_parity(cfg, 64, 128)}
@@ -740,6 +830,13 @@ def main() -> int:
             policies=(OFF, XSharePolicy(mode="batch", k0=1, m_l=8)))
     with Phase(f"profile {ARCH}"), torch.no_grad():
         prof[ARCH] = profile_phase(cfg, params, prompts, cache_len=512)
+    bf16_check = {}
+    with Phase(f"bf16 check {ARCH}"), torch.no_grad():
+        from repro_torch.kernels import grouped_ffn_plain
+        from repro_torch.models import dispatch
+        bf16_check[ARCH] = bf16_model_check(
+            cfg, params, prompts, cache_len=512, module=dispatch,
+            attr="grouped_ffn", plain=grouped_ffn_plain)
     del params
     torch.cuda.empty_cache()
     for name in SSM_ARCHS:
@@ -756,8 +853,11 @@ def main() -> int:
                 prof[name] = profile_phase(scfg, params, prompts,
                                            cache_len=1024)
             with Phase(f"bf16 check {name}"), torch.no_grad():
-                bf16_check = ssm_bf16_check(scfg, params, prompts,
-                                            cache_len=1024)
+                from repro_torch.kernels import ssd_scan_plain
+                from repro_torch.models import ssm
+                bf16_check[name] = bf16_model_check(
+                    scfg, params, prompts, cache_len=1024, module=ssm,
+                    attr="ssd_scan", plain=ssd_scan_plain)
         del params
         torch.cuda.empty_cache()
 

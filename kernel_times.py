@@ -12,8 +12,8 @@ that tree's kernels, with this checkout's ``time_ms`` (L2 flushed, the
 host's enqueueing outside the timed window). It holds each kernel to its
 plain version as those functions do, and checks no design goal of this
 checkout's kernels. Prints one JSON line per case (source, kernel, dtype,
-case, ms, CUDA kernels per call where counted); FILE gets every case in
-full. To compare commits A and B, run A, B, B, A in one call."""
+case, ms, the library call's or yardstick's ms, CUDA kernels per call);
+FILE gets every case in full. To compare commits A and B, run A, B, B, A in one call."""
 from __future__ import annotations
 
 import argparse
@@ -23,8 +23,9 @@ from pathlib import Path
 
 import chip_smoke
 
-KEYS = ("dtype", "policy", "model", "init_state", "dt_shift", "active",
-        "max_active", "ms", "kernels_per_call", "max_abs_err", "ok")
+KEYS = ("dtype", "policy", "model", "lengths", "init_state", "dt_shift",
+        "active", "max_active", "ms", "library_ms", "ms_over_sdpa",
+        "grouped_mm_ms", "kernels_per_call", "max_abs_err", "ok")
 
 
 def main() -> int:

@@ -33,11 +33,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signature of every entry point: name -> argument types (return: int)
 SIGNATURES = {
-    "grouped_ffn_up": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "grouped_ffn_down": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "grouped_ffn": [_P] * 8 + [_I] * 5 + [_P],
     "moe_ffn": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 8 + [_P],
-    "decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         ctypes.c_float, _I, _P],
+    "decode_attention": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P],
     "ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
 }
 

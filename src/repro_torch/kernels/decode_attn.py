@@ -6,6 +6,7 @@ A CPU tensor goes to the plain version, a CUDA tensor to the kernel;
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -14,6 +15,30 @@ from repro_torch.kernels import build
 
 _HEAD_DIMS = (32, 64, 128, 256)
 _MAX_GROUP = 8    # query heads per KV head the kernel holds in registers
+_WARPS, _UNROLL = 4, 4   # the split kernel's NW and U (csrc/decode_attn.cu)
+_BLOCKS_PER_SM = 16      # the most split blocks per SM a full cache gives
+
+
+def split_plan(B: int, S: int, Hkv: int, dh: int, itemsize: int,
+               sms: int) -> tuple:
+    """(n_split, span): the kernel cuts each row's S positions into
+    n_split spans of ``span`` positions, one block per (span, KV head,
+    row). A span is a whole number of the block's steps (each lane loads
+    16 bytes of a row per position, ``_UNROLL`` positions a step), as
+    short as keeps the grid under ``_BLOCKS_PER_SM`` blocks per SM when
+    the whole cache is live. It reads S, B and Hkv only, never the
+    lengths, so choosing it needs no host sync."""
+    lanes_per_row = min(32, dh * itemsize // 16)
+    step = _WARPS * _UNROLL * (32 // lanes_per_row)
+    steps = -(-S // step)
+    most = max(1, _BLOCKS_PER_SM * sms // (B * Hkv))   # splits allowed
+    span = -(-steps // min(steps, most)) * step
+    return -(-S // span), span
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -65,12 +90,19 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"decode_attention: {name} must be a "
                              f"contiguous tensor on {q.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"decode_attention: {name} not 16-byte "
+                             f"aligned")
+    n_split, span = split_plan(B, S, Hkv, dh, q.element_size(),
+                               _sm_count(q.device.index or 0))
+    part = torch.empty(n_split * B * H * (dh + 2), dtype=torch.float32,
+                       device=q.device)
     out = torch.empty_like(q)
-    lib = build.lib()
-    build.check(lib.decode_attention(
+    build.check(build.lib().decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, S, H, Hkv, dh, 1.0 / math.sqrt(dh),
-        build.dtype_code(q), build.stream_ptr(q.device)), "decode_attention")
+        part.data_ptr(), out.data_ptr(), B, S, H, Hkv, dh, n_split, span,
+        1.0 / math.sqrt(dh), build.dtype_code(q),
+        build.stream_ptr(q.device)), "decode_attention")
     decode_attention.launches += 1
     return out
 

@@ -137,7 +137,10 @@ def grouped_ffn(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                 tile_valid: torch.Tensor, *, block_t: int) -> torch.Tensor:
     """Grouped expert FFN over an expert-sorted, tile-padded row layout
     (``models.dispatch.dispatch_plan``). xs: (P, d) with P a multiple of
-    block_t; tile_eid, tile_valid: (P / block_t,)."""
+    block_t; tile_eid, tile_valid: (P / block_t,). On the GPU d and f
+    must be multiples of 8 and xs and the weights 16-byte aligned (the
+    kernel copies them in 16-byte vectors); a call is two CUDA kernels
+    (up, then down chained by programmatic dependent launch)."""
     if xs.device.type == "cpu":
         return grouped_ffn_plain(xs, w1, w3, w2, tile_eid, tile_valid,
                                  block_t=block_t)
@@ -153,21 +156,24 @@ def grouped_ffn(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
              "grouped_ffn: tile vector shapes")
     _require(xs.dtype == w1.dtype == w3.dtype == w2.dtype,
              "grouped_ffn: xs and weights must share a dtype")
+    _require(d % 8 == 0 and f % 8 == 0,
+             f"grouped_ffn: d={d} and f={f} must be multiples of 8")
     eid = tile_eid.to(torch.int32).contiguous()
     valid = tile_valid.to(torch.int32).contiguous()
     _check_cuda("grouped_ffn", xs.device, xs=xs, w1=w1, w3=w3, w2=w2,
                 tile_eid=eid, tile_valid=valid)
-    h = torch.empty((P, f), dtype=torch.float32, device=xs.device)
+    for k, t in dict(xs=xs, w1=w1, w3=w3, w2=w2).items():
+        _require(t.data_ptr() % 16 == 0,
+                 f"grouped_ffn: {k} not 16-byte aligned")
+    # H in the input dtype: bf16 rounded for the tensor cores, as
+    # moe_ffn's H is; f32 stays f32
+    h = torch.empty((P, f), dtype=xs.dtype, device=xs.device)
     ys = torch.empty_like(xs)
-    lib, dt = build.lib(), build.dtype_code(xs)
-    stream = build.stream_ptr(xs.device)
-    build.check(lib.grouped_ffn_up(
-        xs.data_ptr(), w1.data_ptr(), w3.data_ptr(), eid.data_ptr(),
-        valid.data_ptr(), h.data_ptr(), P, d, f, block_t, dt, stream),
-        "grouped_ffn_up")
-    build.check(lib.grouped_ffn_down(
-        h.data_ptr(), w2.data_ptr(), eid.data_ptr(), valid.data_ptr(),
-        ys.data_ptr(), P, d, f, block_t, dt, stream), "grouped_ffn_down")
+    build.check(build.lib().grouped_ffn(
+        xs.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        eid.data_ptr(), valid.data_ptr(), h.data_ptr(), ys.data_ptr(), P, d,
+        f, block_t, build.dtype_code(xs), build.stream_ptr(xs.device)),
+        "grouped_ffn")
     grouped_ffn.launches += 1
     return ys
 

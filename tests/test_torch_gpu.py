@@ -183,6 +183,200 @@ def test_decode_attention_kernel(cuda, dtype, B, H, Hkv, dh, S):
     check(out, ref, dtype)
 
 
+def _attn_case(g, dev, dtype, B, H, Hkv, dh, S, lengths):
+    q = rand(g, (B, H, dh), dtype).to(dev)
+    k = rand(g, (B, S, Hkv, dh), dtype).to(dev)
+    v = rand(g, (B, S, Hkv, dh), dtype).to(dev)
+    return q, k, v, torch.as_tensor(lengths, dtype=torch.int32).to(dev)
+
+
+def _span(B, S, Hkv, dh, dtype, dev):
+    from repro_torch.kernels.decode_attn import _sm_count, split_plan
+    return split_plan(B, S, Hkv, dh, torch.finfo(dtype).bits // 8,
+                      _sm_count(dev.index or 0))
+
+
+# the kernel cuts S into spans, one block each: a length of 1, exactly
+# one span, one position into the next span, and the whole cache
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,dh,S", [(16, 8, 64, 512), (32, 32, 64, 1024),
+                                        (8, 1, 128, 300), (4, 4, 32, 100),
+                                        (16, 2, 256, 200)])
+def test_decode_attention_split_edges(cuda, dtype, H, Hkv, dh, S):
+    from repro_torch import kernels as K
+    n_split, span = _span(4, S, Hkv, dh, dtype, cuda)
+    assert n_split * span >= S
+    lengths = [1, min(span, S), min(span + 1, S), S]
+    g = torch.Generator().manual_seed(S + dh)
+    args = _attn_case(g, cuda, dtype, 4, H, Hkv, dh, S, lengths)
+    check(K.decode_attention(*args), K.decode_attention_plain(*args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H", [1, 8])
+def test_decode_attention_many_splits(cuda, dtype, H):
+    from repro_torch import kernels as K
+    n_split, _ = _span(1, 4096, 1, 64, dtype, cuda)
+    assert n_split >= 32
+    g = torch.Generator().manual_seed(H)
+    for length in (4096, 2777):
+        args = _attn_case(g, cuda, dtype, 1, H, 1, 64, 4096, [length])
+        check(K.decode_attention(*args), K.decode_attention_plain(*args),
+              dtype)
+
+
+# the main paths at the lengths they serve: granite-moe (128 prompt
+# tokens + up to 32 new, cache 512) and zamba2-1.2b (500 + 32, 1024)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,S,lo,hi", [(16, 8, 512, 129, 160),
+                                           (32, 32, 1024, 501, 532)],
+                         ids=["granite", "zamba2"])
+def test_decode_attention_served_lengths(cuda, dtype, H, Hkv, S, lo, hi):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(lo)
+    lengths = torch.randint(lo, hi + 1, (8,), generator=g)
+    args = _attn_case(g, cuda, dtype, 8, H, Hkv, 64, S, lengths)
+    out = K.decode_attention(*args)
+    check(out, K.decode_attention_plain(*args), dtype)
+    assert torch.equal(out, K.decode_attention(*args)), \
+        "decode_attention must give the same bits call after call"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_is_deterministic(cuda, dtype):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(7)
+    lengths = torch.randint(1, 513, (8,), generator=g)
+    args = _attn_case(g, cuda, dtype, 8, 16, 8, 64, 512, lengths)
+    first = K.decode_attention(*args)
+    for _ in range(3):
+        assert torch.equal(first, K.decode_attention(*args))
+
+
+def test_decode_attention_one_call_is_at_most_two_kernels(cuda):
+    from repro_torch import kernels as K
+    cuda_kernels_of = _chip_smoke().cuda_kernels_of
+    g = torch.Generator().manual_seed(8)
+    for H, Hkv, S, lo in ((16, 8, 512, 129), (32, 32, 1024, 501)):
+        args = _attn_case(g, cuda, torch.bfloat16, 8, H, Hkv, 64, S,
+                          torch.randint(lo, lo + 32, (8,), generator=g))
+        n, per_kernel = cuda_kernels_of(lambda: K.decode_attention(*args))
+        assert 1 <= n <= 2, f"one decode_attention call ran {n} CUDA " \
+            f"kernels: {per_kernel}"
+
+
+def test_decode_attention_refuses_misaligned_tensors(cuda):
+    from repro_torch import kernels as K
+    q = _misaligned((2, 4, 64), torch.bfloat16, cuda)
+    kv = torch.zeros((2, 16, 4, 64), dtype=torch.bfloat16, device=cuda)
+    lengths = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.decode_attention(q, kv, kv, lengths)
+
+
+def _grouped_case(g, dev, dtype, d, E, f, idx, w, block_t=None):
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+    x = rand(g, (idx.shape[0], d), dtype).to(dev)
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.05).to(dev) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.05).to(dev)
+    plan = dispatch_plan(idx.to(dev), w.to(dev), E, block_t=block_t)
+    return (gather_tokens(x, plan), w1, w3, w2, plan.tile_eid,
+            plan.tile_valid), plan.block_t
+
+
+# block_t at both ends of default_block_t's range [8, 256] (256 spans
+# two of the kernel's 128-row blocks), and every row on one expert
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,E,f,k,block_t,one_expert", [
+    (40, 64, 4, 128, 2, 8, False), (300, 96, 8, 80, 3, 256, False),
+    (600, 128, 6, 64, 2, 256, False), (200, 64, 8, 96, 1, 16, True),
+    (500, 128, 4, 128, 2, 128, True)])
+def test_grouped_ffn_kernel_tiles(cuda, dtype, T, d, E, f, k, block_t,
+                                  one_expert):
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import topk_route
+    g = torch.Generator().manual_seed(T + block_t)
+    if one_expert:   # every row on expert E - 1 (k = 1) or E - 1 and 0
+        idx = torch.tensor([[E - 1, 0][:k]] * T)
+        w = torch.full((T, k), 1.0 / k)
+    else:
+        idx, w = topk_route(rand(g, (T, E), torch.float32), k)
+    args, bt = _grouped_case(g, cuda, dtype, d, E, f, idx, w, block_t)
+    assert bt == block_t
+    out = K.grouped_ffn(*args, block_t=bt)
+    check(out, K.grouped_ffn_plain(*args, block_t=bt), dtype)
+    assert torch.equal(out, K.grouped_ffn(*args, block_t=bt))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_ffn_invalid_tiles_give_zeros(cuda, dtype):
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import topk_route
+    g = torch.Generator().manual_seed(3)
+    idx, w = topk_route(rand(g, (64, 8), torch.float32), 2)
+    args, bt = _grouped_case(g, cuda, dtype, 64, 8, 64, idx, w, 16)
+    xs, w1, w3, w2, eid, valid = args
+    # a call with valid tiles first leaves nonzero rows in the block the
+    # allocator hands the next output, so stale memory cannot pass
+    nonzero = K.grouped_ffn(*args, block_t=bt)
+    assert float(nonzero.float().abs().max()) > 0.0
+    del nonzero
+    out = K.grouped_ffn(xs, w1, w3, w2, eid, torch.zeros_like(valid),
+                        block_t=bt)
+    assert float(out.float().abs().max()) == 0.0
+    assert not bool(torch.isnan(out.float()).any())
+
+
+def test_grouped_ffn_granite_prefill_shape(cuda):
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import topk_route
+    g = torch.Generator().manual_seed(1024)
+    idx, w = topk_route(rand(g, (8 * 128, 32), torch.float32), 8)
+    args, bt = _grouped_case(g, cuda, torch.bfloat16, 1024, 32, 512, idx, w)
+    assert bt == 128
+    out = K.grouped_ffn(*args, block_t=bt)
+    check(out, K.grouped_ffn_plain(*args, block_t=bt), torch.bfloat16)
+
+
+def test_grouped_ffn_one_call_is_at_most_two_kernels(cuda):
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import topk_route
+    cuda_kernels_of = _chip_smoke().cuda_kernels_of
+    g = torch.Generator().manual_seed(2)
+    idx, w = topk_route(rand(g, (512, 32), torch.float32), 8)
+    args, bt = _grouped_case(g, cuda, torch.bfloat16, 1024, 32, 512, idx, w)
+    n, per_kernel = cuda_kernels_of(lambda: K.grouped_ffn(*args,
+                                                          block_t=bt))
+    assert 1 <= n <= 2, f"one grouped_ffn call ran {n} CUDA kernels: " \
+        f"{per_kernel}"
+
+
+@pytest.mark.parametrize("d,f", [(60, 64), (64, 60)])
+def test_grouped_ffn_refuses_widths_not_a_multiple_of_8(cuda, d, f):
+    from repro_torch import kernels as K
+    xs = torch.zeros((16, d), dtype=torch.bfloat16, device=cuda)
+    w13 = torch.zeros((2, d, f), dtype=torch.bfloat16, device=cuda)
+    w2 = torch.zeros((2, f, d), dtype=torch.bfloat16, device=cuda)
+    tiles = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K.grouped_ffn(xs, w13, w13, w2, tiles, tiles, block_t=8)
+
+
+@pytest.mark.parametrize("name", ["xs", "w1", "w3", "w2"])
+def test_grouped_ffn_refuses_misaligned_tensors(cuda, name):
+    from repro_torch import kernels as K
+    shapes = dict(xs=(16, 64), w1=(2, 64, 32), w3=(2, 64, 32),
+                  w2=(2, 32, 64))
+    t = {k: torch.zeros(v, dtype=torch.bfloat16, device=cuda)
+         for k, v in shapes.items()}
+    t[name] = _misaligned(shapes[name], torch.bfloat16, cuda)
+    assert t[name].is_contiguous() and t[name].data_ptr() % 16
+    tiles = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.grouped_ffn(t["xs"], t["w1"], t["w3"], t["w2"], tiles, tiles,
+                      block_t=8)
+
+
 # ssd_scan against its plain version: tests/test_kernels.py's bars for
 # the scan, 1e-4 in f32 and 5e-2 in bf16
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}

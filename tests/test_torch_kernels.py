@@ -195,6 +195,33 @@ def test_decode_attention_zero_length_gives_zeros_like_jax():
 
 # ------------------------------------------------------------ wrappers ----
 
+@pytest.mark.parametrize("B,S,Hkv,dh,itemsize", [
+    (8, 512, 8, 64, 2), (8, 1024, 32, 64, 2), (8, 512, 8, 64, 4),
+    (1, 4096, 1, 64, 2), (3, 100, 4, 32, 2), (2, 300, 1, 128, 4),
+    (1, 1, 1, 256, 2), (64, 8192, 8, 128, 2)])
+def test_decode_attention_split_plan(B, S, Hkv, dh, itemsize):
+    """The split kernel's grid, chosen from S, B and Hkv alone: whole
+    steps of positions per span, every position in exactly one span, no
+    span wholly past S, and at most 16 blocks per SM on a full cache
+    unless a span is already one step."""
+    from repro_torch.kernels.decode_attn import split_plan
+    sms = 132
+    n_split, span = split_plan(B, S, Hkv, dh, itemsize, sms)
+    step = 4 * 4 * (32 // min(32, dh * itemsize // 16))
+    assert span % step == 0
+    assert (n_split - 1) * span < S <= n_split * span
+    assert n_split * B * Hkv <= 16 * sms or span == step
+
+
+# granite-moe's and zamba2-1.2b's decode shapes (bf16): about 4 blocks
+# per SM or more when the cache is full
+@pytest.mark.parametrize("B,S,Hkv", [(8, 512, 8), (8, 1024, 32)])
+def test_decode_attention_split_plan_fills_the_card(B, S, Hkv):
+    from repro_torch.kernels.decode_attn import split_plan
+    n_split, _ = split_plan(B, S, Hkv, 64, 2, 132)
+    assert n_split * B * Hkv >= 3.8 * 132
+
+
 def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
     """On the CPU a wrapper takes its plain version without building or
     loading anything and without counting a launch."""
