@@ -15,42 +15,66 @@ each prints its wall time):
                 PyTorch library call where one computes the same thing
                 (decode_attention at granite-moe's and zamba2-1.2b's
                 decode shapes, with ragged lengths and with the lengths
-                each main path serves, its time over SDPA's printed;
-                grouped_ffn at granite's prefill with its achieved
-                TFLOP/s, beside torch._grouped_mm where the card's
-                PyTorch has it; ssd_scan at mamba2-370m's and
-                zamba2-1.2b's prefill shapes, once more from a nonzero
-                initial state, and with dt ~ 0.01, where the state
-                carried across chunks dominates, with its achieved
-                TFLOP/s); moe_ffn under policy off and batch, failing if
-                one call runs more than 3 CUDA kernels (torch.profiler)
-                or if, in bf16, its time ratio batch / off exceeds the
-                active-expert ratio by more than 0.2; failing if one
-                decode_attention or grouped_ffn call runs more than 2;
+                each main path serves, and at granite's verify shape,
+                8 rows x (1 + L_s = 5) queries, with cur_len ragged, at
+                the served 128-160, and under a rolling window of 128
+                in a cache of 640 that wraps, beside SDPA with the same
+                boolean mask; grouped_ffn at granite's prefill and
+                verify shapes with its achieved TFLOP/s, beside
+                torch._grouped_mm where the card's PyTorch has it; all
+                three at the shapes of granite's 2-layer draft (d 128,
+                4 experts top-2, 2 / 2 heads of 64): its 8 x 128
+                prefill, its 8-token decode steps, one query per row at
+                cur_len 128-160);
+                ssd_scan at mamba2-370m's and zamba2-1.2b's prefill
+                shapes, once more from a nonzero initial state, and
+                with dt ~ 0.01, where the state carried across chunks
+                dominates, with its achieved TFLOP/s); moe_ffn under
+                policy off and batch, failing if one call runs more
+                than 3 CUDA kernels (torch.profiler) or if, in bf16,
+                its time ratio batch / off exceeds the active-expert
+                ratio by more than 0.2; failing if one decode_attention
+                or grouped_ffn call runs more than 2;
   3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
                 shared-block application), prefill of 4 x 64 tokens
                 (granite-moe) or 4 x 300 (mamba2, zamba2) then 8 greedy
                 decode steps, on the CPU (plain versions) and on the card
-                (kernels): tokens equal, logits close;
+                (kernels): tokens equal, logits close; and granite-moe's
+                speculative decoding (spec_len 3, 16 new; the self-draft
+                and the target's params + 0.05 N(0, 1), which must be
+                rejected at least once): continuous == lockstep == plain
+                greedy on each device, CPU == GPU;
   4. main path  random weights from a seed, bf16, all layers, through
                 Engine.generate; continuous equals lockstep, and each
                 kernel of the path was launched in its continuous run
                 (counters set to 0 just before it, read just after):
                 granite-moe-1b-a400m (24 layers), 8 requests of 128
                 prompt tokens, 32 new each, XShare policy off and batch;
-                mamba2-370m (48 layers) and zamba2-1.2b (38 layers), 8
+                mamba2-370m (48 layers) and zamba2-1.2b (38), 8
                 requests of 500 prompt tokens, 32 new each, policy off:
                 ssd_scan once per SSM layer per prefill, decode_attention
                 once per shared-block application per decode round;
   5. profile    torch.profiler over a prefill and 8 decode steps of
                 granite-moe (8 x 128 tokens) and of mamba2-370m (8 x 500),
-                with ssd_scan's share of the mamba2 device time;
+                with ssd_scan's share of the mamba2 device time, and (CUDA
+                activity only) over one speculative dispatch of
+                granite-moe (4 rounds, small draft), per round;
   6. bf16 check granite-moe's prefill logits (24 layers, 8 x 128) with
                 the grouped_ffn kernel, and mamba2-370m's (48 layers,
                 8 x 500) with the ssd_scan kernel, each also with the
                 kernel's plain version, all in bf16, against f32: the
                 kernel's logit error at most twice the plain bf16
-                path's.
+                path's;
+  7. spec       granite-moe speculative decoding at full width: in f32
+                (spec_len 4, 8 x 128 prompts, 16 new; the self-draft and
+                the perturbed draft, which must be rejected at least
+                once) the continuous, lockstep and mixed spec / plain
+                tokens equal plain greedy; in bf16 (32 new, spec_len 4, 4 rounds per
+                dispatch) with the self-draft and with the serve CLI's
+                2-layer draft at the target's vocabulary, under policy
+                off and Algorithm 4, exact launch counts of the three
+                kernels from the rounds each run reports, with tokens/s,
+                acceptance and activated experts printed.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -158,21 +182,44 @@ def cuda_kernels(prof):
             if e.device_type == DeviceType.CUDA]
 
 
-def cuda_kernels_of(fn):
+def port_kernels_ms(kern, per):
+    """Device ms of the port's kernels (csrc/*.cu) in a profiler's CUDA
+    events, by name and template, divided by ``per``."""
+    ours = {}
+    for e in kern:
+        kname = e.key.replace("(anonymous namespace)::", "").split(
+            "(")[0].removeprefix("void ")
+        if kname.startswith(PORT_KERNELS):
+            ours[kname] = ours.get(kname, 0.0) + \
+                e.self_device_time_total / 1e3 / per
+    return ours
+
+
+def cuda_kernels_of(fn, calls: int = 3, tries: int = 5):
     """(count, {name: device us}) of the CUDA kernels one call of fn
-    runs, by torch.profiler, after a warm-up call."""
+    runs, by torch.profiler over ``calls`` calls after a warm-up call.
+    The tracer can lose records (seen on an H100: a session with none of
+    its call's 2 kernels, or 1 of them), never invent one, so the count
+    per call is rounded up, and a session that sees no kernel is
+    repeated, up to ``tries`` sessions."""
     from torch.profiler import ProfilerActivity, profile
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    kern = cuda_kernels(prof)
+        time.sleep(0.05)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        kern = cuda_kernels(prof)
+        if kern:
+            break
     us = {}
     for e in kern:   # names cut to 72 characters keep template arguments
-        us[e.key[:72]] = us.get(e.key[:72], 0.0) + e.self_device_time_total
-    return sum(e.count for e in kern), us
+        us[e.key[:72]] = us.get(e.key[:72], 0.0) + \
+            e.self_device_time_total / calls
+    return -(-sum(e.count for e in kern) // calls), us
 
 
 def max_err(a, b) -> float:
@@ -203,16 +250,13 @@ class Phase:
 
 def kernel_cases(archs):
     """Each kernel against its plain version at the main paths' shapes
-    (decode_attention at granite-moe's and at zamba2-1.2b's shared block).
-    Returns {kernel name: [case dicts]}."""
+    (decode_attention at granite-moe's and at zamba2-1.2b's shared block;
+    all three of granite's kernels also at its verify pass's and at its
+    small draft's shapes). Returns {kernel name: [case dicts]}."""
+    from repro_torch import kernels as K
     from repro_torch.configs.base import XSharePolicy
-    from repro_torch.core.routing import topk_route
-    from repro_torch.kernels import (decode_attention,
-                                     decode_attention_plain, grouped_ffn,
-                                     grouped_ffn_plain, moe_ffn,
-                                     moe_ffn_plain)
-    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
-    from repro_torch.models.moe import OFF, policy_max_active, route
+    from repro_torch.kernels import decode_attention, decode_attention_plain
+    from repro_torch.models.moe import OFF
 
     dev = CUDA
     g = torch.Generator(device=dev)
@@ -229,85 +273,24 @@ def kernel_cases(archs):
         return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
 
     wg = randn(d, E, scale=0.02)
-    moe_p = {"wg": wg}
     for dtype in (torch.float32, torch.bfloat16):
         sz = torch.finfo(dtype).bits // 8
         w1 = randn(E, d, f, scale=0.02, dtype=dtype)
         w3 = randn(E, d, f, scale=0.02, dtype=dtype)
         w2 = randn(E, f, d, scale=0.02, dtype=dtype)
 
-        # grouped_ffn: a prefill of 8 x 128 tokens, top-8 of 32 experts
-        x = randn(8 * 128, d, dtype=dtype)
-        idx, w = topk_route(x.float() @ wg, k)
-        plan = dispatch_plan(idx, w, E)
-        xs = gather_tokens(x, plan)
-        args = (xs, w1, w3, w2, plan.tile_eid, plan.tile_valid)
-        ker = grouped_ffn(*args, block_t=plan.block_t)
-        ref = grouped_ffn_plain(*args, block_t=plan.block_t)
-        n_rows = int(plan.counts.sum())
-        occupied = int(torch.unique(plan.tile_eid[plan.tile_valid > 0])
-                       .numel())
-        # the function reads only the rows of valid tiles, writes all P
-        # rows (zeros for invalid tiles) and each occupied expert's weights
-        nbytes = ((int(plan.tile_valid.sum()) * plan.block_t + xs.shape[0])
-                  * d * sz + occupied * 3 * d * f * sz
-                  + 2 * plan.tile_eid.numel() * 4)
-        bms, by = bound_ms(nbytes, 6.0 * n_rows * d * f, dtype)
-        n_kern, kern_us = cuda_kernels_of(
-            lambda: grouped_ffn(*args, block_t=plan.block_t))
-        case = dict(
-            dtype=str(dtype).replace("torch.", ""),
-            shape=f"P={xs.shape[0]} d={d} f={f} E={E} "
-                  f"block_t={plan.block_t} rows={n_rows}",
-            max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
-            ref_max_abs=float(ref.float().abs().max()),
-            kernels_per_call=n_kern, kernel_device_us=kern_us,
-            ms=time_ms(lambda: grouped_ffn(*args, block_t=plan.block_t)),
-            plain_ms=time_ms(lambda: grouped_ffn_plain(
-                *args, block_t=plan.block_t), iters=5),
-            bound_ms=bms, bound_by=by, library_ms=None)
-        case["tflops"] = 6.0 * n_rows * d * f / case["ms"] / 1e9
-        if dtype == torch.bfloat16:
-            case.update(grouped_mm_yardstick(plan, *args[:4]))
-        log(f"grouped_ffn {dtype}: {case['ms']:.4f} ms (bound "
-            f"{bms:.4f}), {case['tflops']:.1f} TFLOP/s on the real rows, "
-            f"{n_kern} CUDA kernels per call: {kern_us}; torch._grouped_mm "
-            f"yardstick (several calls): {case.get('grouped_mm_ms')}")
-        out["grouped_ffn"].append(case)
+        # grouped_ffn: a prefill of 8 x 128 tokens, and a verify pass of 8
+        # rows x (1 + L_s = 5) tokens, top-8 of 32 experts
+        for label, n_tok in (("prefill", 8 * 128), ("verify", 8 * 5)):
+            x = randn(n_tok, d, dtype=dtype)
+            out["grouped_ffn"].append(grouped_case(
+                label, x, wg, w1, w3, w2, E, k, dtype, sz))
 
         # moe_ffn: one decode step's FFN, 8 tokens, policy off and batch
         xt = randn(8, d, dtype=dtype)
-        moe_cases = []
-        for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)):
-            _, _, combine, _ = route(moe_p, xt, cfg.moe, pol)
-            active = (combine != 0).any(0)
-            ma = policy_max_active(pol, 8, E)
-            margs = (xt, w1, w3, w2, combine, active)
-            ker = moe_ffn(*margs, max_active=ma)
-            ref = moe_ffn_plain(*margs)
-            n_act = int(active.sum())
-            if n_act > ma:
-                fail(f"moe_ffn: {n_act} active experts > max_active {ma}")
-            nnz = int((combine != 0).sum())
-            nbytes = (2 * xt.numel() * sz + combine.numel() * 4 + E
-                      + n_act * 3 * d * f * sz)
-            bms, by = bound_ms(nbytes, 6.0 * nnz * d * f, dtype)
-            n_kern, kern_us = cuda_kernels_of(
-                lambda: moe_ffn(*margs, max_active=ma))
-            moe_cases.append(dict(
-                dtype=str(dtype).replace("torch.", ""), policy=pol.mode,
-                shape=f"T=8 d={d} f={f} E={E} active={n_act} "
-                      f"max_active={ma}",
-                active=n_act, max_active=ma, kernels_per_call=n_kern,
-                kernel_device_us=kern_us,
-                max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
-                ref_max_abs=float(ref.float().abs().max()),
-                ms=time_ms(lambda: moe_ffn(*margs, max_active=ma)),
-                plain_ms=time_ms(lambda: moe_ffn_plain(*margs)),
-                bound_ms=bms, bound_by=by, library_ms=None))
-            log(f"moe_ffn {dtype} policy={pol.mode}: active={n_act} "
-                f"max_active={ma}, {moe_cases[-1]['ms']:.4f} ms (bound "
-                f"{bms:.4f}), {n_kern} CUDA kernels per call: {kern_us}")
+        moe_cases = [moe_case(xt, wg, w1, w3, w2, cfg.moe, pol, dtype)
+                     for pol in (OFF, XSharePolicy(mode="batch", k0=1,
+                                                   m_l=8))]
         # XShare's saving at kernel level: time follows the selected set
         off, bat = moe_cases
         t_ratio, a_ratio = bat["ms"] / off["ms"], bat["active"] / off["active"]
@@ -368,7 +351,219 @@ def kernel_cases(archs):
             out["decode_attention"].append(case)
             del q, kc, vc, kt, vt
         del w1, w3, w2
+    # the verify pass and the small draft, last and on their own
+    # generators, so the cases above get the same inputs and allocations
+    # in a tree without them (an older commit's, timed by kernel_times.py)
+    cached = hasattr(K, "decode_attention_cached")
+    if cached:
+        gv = torch.Generator(device=dev)
+        gv.manual_seed(4242)
+        for dtype, kind in itertools.product(
+                (torch.float32, torch.bfloat16),
+                ("ragged", "served", "window")):
+            out["decode_attention"].append(verify_attention_case(
+                cfg.attn, kind, dtype, gv))
+    for kernel, cases in draft_cases(cfg, cached).items():
+        out[kernel] += cases
     return out
+
+
+def draft_cases(cfg, cached: bool):
+    """The kernels at the shapes small_draft(cfg) gives them in the served
+    spec runs (d_model 128, 4 experts top-2 of width 128, 2 / 2 heads of
+    64): grouped_ffn on its prefill of 8 x 128 tokens, moe_ffn on its
+    decode steps of 8 tokens (the draft runs policy off), and
+    decode_attention on those steps (one query per row at cur_len
+    128-160 in a cache of 512), in f32 and bf16."""
+    from repro_torch.models.moe import OFF
+
+    dcfg = draft_config(cfg)
+    d, m = dcfg.d_model, dcfg.moe
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(4343)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=CUDA)
+                ).to(dtype)
+
+    label = f"{ARCH} draft"
+    out = {"grouped_ffn": [], "moe_ffn": [], "decode_attention": []}
+    wg = randn(d, m.num_experts, scale=0.02)
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = torch.finfo(dtype).bits // 8
+        w1, w3 = (randn(m.num_experts, d, m.d_ff_expert, scale=0.02,
+                        dtype=dtype) for _ in range(2))
+        w2 = randn(m.num_experts, m.d_ff_expert, d, scale=0.02, dtype=dtype)
+        c = grouped_case("draft prefill", randn(8 * 128, d, dtype=dtype), wg,
+                         w1, w3, w2, m.num_experts, m.top_k, dtype, sz)
+        out["grouped_ffn"].append(dict(c, model=label))
+        out["moe_ffn"].append(moe_case(randn(8, d, dtype=dtype), wg, w1, w3,
+                                       w2, m, OFF, dtype, label=label))
+        if cached:
+            out["decode_attention"].append(verify_attention_case(
+                dcfg.attn, "served", dtype, g, T=1, label=label))
+    return out
+
+
+def cached_mask(cur, T: int, C: int, window):
+    """(B, T, C) bool: the slots query t of each row sees under
+    cached_attention's contract (the mask of its plain version)."""
+    slot = torch.arange(C, device=cur.device)[None, None, :]
+    q_pos = (cur.long()[:, None]
+             + torch.arange(T, device=cur.device)[None, :])[..., None]
+    slot_pos = slot.expand(cur.shape[0], T, C) if window is None \
+        else q_pos - torch.remainder(q_pos - slot, C)
+    mask = (slot_pos <= q_pos) & (slot_pos >= 0)
+    if window is not None:
+        mask &= slot_pos > q_pos - window
+    return mask
+
+
+def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH):
+    """decode_attention under the cached_attention contract, 8 rows of T
+    queries (granite's verify shape: 1 + L_s = 5) at heads ``a``: cur_len
+    ragged over [0, C - T] or at the served lengths 128-160 in a cache of
+    512, or a rolling window of 128 in a cache of 640 with cur_len over
+    [0, 3C), so the cache wraps. Beside its bound (the live positions'
+    bytes) and SDPA with the same boolean mask."""
+    from repro_torch.kernels import (decode_attention_cached,
+                                     decode_attention_cached_plain)
+    B, H, Hkv, dh = 8, a.num_heads, a.num_kv_heads, a.head_dim
+    sz = torch.finfo(dtype).bits // 8
+    window = 128 if kind == "window" else None
+    C = 640 if kind == "window" else 512
+    lo, hi = {"ragged": (0, C - T), "served": (128, 160),
+              "window": (0, 3 * C - 1)}[kind]
+    cur = torch.randint(lo, hi + 1, (B,), generator=g, device=CUDA,
+                        dtype=torch.int32)
+    q = (torch.randn((B, T, H, dh), generator=g, device=CUDA)).to(dtype)
+    kc = (torch.randn((B, C, Hkv, dh), generator=g, device=CUDA)).to(dtype)
+    vc = (torch.randn((B, C, Hkv, dh), generator=g, device=CUDA)).to(dtype)
+
+    def kernel():
+        return decode_attention_cached(q, kc, vc, cur, window=window)
+
+    def plain():
+        return decode_attention_cached_plain(q, kc, vc, cur, window=window)
+    mask = cached_mask(cur, T, C, window)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
+    ker, ref = kernel(), plain()
+    # each live slot (seen by any query of its row) read once per KV
+    # head; q read and out written once; QK and PV: 4 dh per (query
+    # head, live pair)
+    live = int(mask.any(1).sum())
+    nbytes = 2 * q.numel() * sz + 2 * live * Hkv * dh * sz + B * 4
+    bms, by = bound_ms(nbytes, 4.0 * int(mask.sum()) * H * dh, dtype)
+    n_kern, kern_us = cuda_kernels_of(kernel)
+    case = dict(
+        dtype=str(dtype).replace("torch.", ""), model=label,
+        case=f"{'verify' if T > 1 else 'decode'} {kind}",
+        lengths=f"cur_len {lo}-{hi}",
+        shape=f"B={B} T={T} C={C} H={H} Hkv={Hkv} dh={dh} "
+              f"window={window} live={live}",
+        max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
+        ref_max_abs=float(ref.float().abs().max()),
+        library_max_abs_err=max_err(sdpa().transpose(1, 2), ref),
+        kernels_per_call=n_kern, kernel_device_us=kern_us,
+        ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=bms,
+        bound_by=by, library_ms=time_ms(sdpa))
+    case["ms_over_sdpa"] = case["ms"] / case["library_ms"]
+    log(f"decode_attention {label} T={T} {kind} {dtype}: "
+        f"{case['ms']:.4f} ms, "
+        f"SDPA {case['library_ms']:.4f} ms, kernel / SDPA = "
+        f"{case['ms_over_sdpa']:.3f} (bound {bms:.4f}), {n_kern} CUDA "
+        f"kernels per call")
+    return case
+
+
+def moe_case(xt, wg, w1, w3, w2, mcfg, pol, dtype, label=ARCH):
+    """moe_ffn against its plain version on one decode step's tokens xt
+    routed under policy pol, timed beside its bound."""
+    from repro_torch.kernels import moe_ffn, moe_ffn_plain
+    from repro_torch.models.moe import policy_max_active, route
+
+    sz = torch.finfo(dtype).bits // 8
+    (T, d), (E, _, f) = xt.shape, w1.shape
+    _, _, combine, _ = route({"wg": wg}, xt, mcfg, pol)
+    active = (combine != 0).any(0)
+    ma = policy_max_active(pol, T, E)
+    margs = (xt, w1, w3, w2, combine, active)
+    ker = moe_ffn(*margs, max_active=ma)
+    ref = moe_ffn_plain(*margs)
+    n_act = int(active.sum())
+    if n_act > ma:
+        fail(f"moe_ffn: {n_act} active experts > max_active {ma}")
+    nnz = int((combine != 0).sum())
+    nbytes = (2 * xt.numel() * sz + combine.numel() * 4 + E
+              + n_act * 3 * d * f * sz)
+    bms, by = bound_ms(nbytes, 6.0 * nnz * d * f, dtype)
+    n_kern, kern_us = cuda_kernels_of(lambda: moe_ffn(*margs, max_active=ma))
+    case = dict(
+        dtype=str(dtype).replace("torch.", ""), model=label,
+        policy=pol.mode,
+        shape=f"T={T} d={d} f={f} E={E} active={n_act} max_active={ma}",
+        active=n_act, max_active=ma, kernels_per_call=n_kern,
+        kernel_device_us=kern_us,
+        max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
+        ref_max_abs=float(ref.float().abs().max()),
+        ms=time_ms(lambda: moe_ffn(*margs, max_active=ma)),
+        plain_ms=time_ms(lambda: moe_ffn_plain(*margs)),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"moe_ffn {label} {dtype} policy={pol.mode}: active={n_act} "
+        f"max_active={ma}, {case['ms']:.4f} ms (bound {bms:.4f}), "
+        f"{n_kern} CUDA kernels per call: {kern_us}")
+    return case
+
+
+def grouped_case(label, x, wg, w1, w3, w2, E, k, dtype, sz):
+    """grouped_ffn against its plain version on the sorted dispatch of x
+    (top-k of E experts), timed beside its bound and, in bf16, the
+    torch._grouped_mm yardstick."""
+    from repro_torch.core.routing import topk_route
+    from repro_torch.kernels import grouped_ffn, grouped_ffn_plain
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+
+    d, f = w1.shape[1], w1.shape[2]
+    idx, w = topk_route(x.float() @ wg, k)
+    plan = dispatch_plan(idx, w, E)
+    xs = gather_tokens(x, plan)
+    args = (xs, w1, w3, w2, plan.tile_eid, plan.tile_valid)
+    ker = grouped_ffn(*args, block_t=plan.block_t)
+    ref = grouped_ffn_plain(*args, block_t=plan.block_t)
+    n_rows = int(plan.counts.sum())
+    occupied = int(torch.unique(plan.tile_eid[plan.tile_valid > 0])
+                   .numel())
+    # the function reads only the rows of valid tiles, writes all P
+    # rows (zeros for invalid tiles) and each occupied expert's weights
+    nbytes = ((int(plan.tile_valid.sum()) * plan.block_t + xs.shape[0])
+              * d * sz + occupied * 3 * d * f * sz
+              + 2 * plan.tile_eid.numel() * 4)
+    bms, by = bound_ms(nbytes, 6.0 * n_rows * d * f, dtype)
+    n_kern, kern_us = cuda_kernels_of(
+        lambda: grouped_ffn(*args, block_t=plan.block_t))
+    case = dict(
+        dtype=str(dtype).replace("torch.", ""), case=label,
+        shape=f"P={xs.shape[0]} d={d} f={f} E={E} "
+              f"block_t={plan.block_t} rows={n_rows}",
+        max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
+        ref_max_abs=float(ref.float().abs().max()),
+        kernels_per_call=n_kern, kernel_device_us=kern_us,
+        ms=time_ms(lambda: grouped_ffn(*args, block_t=plan.block_t)),
+        plain_ms=time_ms(lambda: grouped_ffn_plain(
+            *args, block_t=plan.block_t), iters=5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    case["tflops"] = 6.0 * n_rows * d * f / case["ms"] / 1e9
+    if dtype == torch.bfloat16:
+        case.update(grouped_mm_yardstick(plan, *args[:4]))
+    log(f"grouped_ffn {label} {dtype}: {case['ms']:.4f} ms (bound "
+        f"{bms:.4f}), {case['tflops']:.1f} TFLOP/s on the real rows, "
+        f"{n_kern} CUDA kernels per call: {kern_us}; torch._grouped_mm "
+        f"yardstick (several calls): {case.get('grouped_mm_ms')}")
+    return case
 
 
 def check_moe_cases(cases):
@@ -377,10 +572,10 @@ def check_moe_cases(cases):
     (time follows the selected set)."""
     for c in cases:
         if not 1 <= c["kernels_per_call"] <= 3:
-            fail(f"moe_ffn {c['dtype']} {c['policy']}: one call ran "
-                 f"{c['kernels_per_call']} CUDA kernels, want 1..3")
-        if c["dtype"] == "bfloat16" and c["time_ratio_batch_off"] > \
-                c["active_ratio_batch_off"] + 0.2:
+            fail(f"moe_ffn {c['model']} {c['dtype']} {c['policy']}: one "
+                 f"call ran {c['kernels_per_call']} CUDA kernels, want 1..3")
+        if c["dtype"] == "bfloat16" and "time_ratio_batch_off" in c and \
+                c["time_ratio_batch_off"] > c["active_ratio_batch_off"] + 0.2:
             fail(f"moe_ffn: time ratio {c['time_ratio_batch_off']:.3f} "
                  f"exceeds the active ratio "
                  f"{c['active_ratio_batch_off']:.3f} by more than 0.2")
@@ -561,6 +756,273 @@ def path_parity(cfg, prompt_len: int, cache_len: int):
     return dict(tokens_equal=same, max_abs_logit_diff=err)
 
 
+def perturbed(params, scale: float = 0.05, seed: int = 7):
+    """The parameters plus scale * N(0, 1) noise drawn on their device
+    from a seed: a draft that the target rejects now and then (random
+    weights make every untrained draft echo the target's last token)."""
+    g = None
+
+    def walk(tree):
+        nonlocal g
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+                continue
+            if g is None:
+                g = torch.Generator(device=v.device)
+                g.manual_seed(seed)
+            out[k] = v + scale * torch.randn(v.shape, generator=g,
+                                             device=v.device, dtype=v.dtype)
+        return out
+    return walk(params)
+
+
+def check_rejects(name: str, stats):
+    """A perturbed draft's run must have rejected a draft token, so the
+    rollback over dead verify KV ran."""
+    for st in stats:
+        if not 0 < st.drafted or st.acceptance_rate >= 1.0:
+            fail(f"{name}: perturbed draft accepted {st.accepted} of "
+                 f"{st.drafted}; the run needs a rejection")
+
+
+def spec_parity(cfg, prompt_len: int, cache_len: int):
+    """Speculative decoding at 2 layers in f32 (spec_len 3, 16 new
+    tokens) with the self-draft and with the target's params plus
+    0.05 N(0, 1), on the CPU (plain versions) and on the card (kernels):
+    the continuous (SpecScheduler) and lockstep tokens equal plain greedy
+    decoding on each device, the two devices agree, and the perturbed
+    draft is rejected at least once on each."""
+    from repro_torch.bridge import init_params
+    from repro_torch.models.model import params_to
+    from repro_torch.serving import Engine
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params = init_params(cfg2, seed=0, dtype=torch.float32, device="cpu")
+    drafts = {"self": params, "perturbed": perturbed(params)}
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, prompt_len)).astype(np.int32)
+    toks, res = {}, {}
+    for dev in ("cpu", CUDA):
+        p = params_to(params, dev)
+        plain, _ = Engine(cfg2, p, cache_len=cache_len,
+                          device=dev).generate(prompts, 16)
+        for dname, dp in drafts.items():
+            eng = Engine(cfg2, p, cache_len=cache_len,
+                         draft=(cfg2, params_to(dp, dev)), spec_len=3,
+                         device=dev)
+            cont, st = eng.generate(prompts, 16)
+            lock, lst = eng.generate(prompts, 16, lockstep=True)
+            if not (np.array_equal(cont, plain)
+                    and np.array_equal(lock, plain)):
+                fail(f"spec parity {cfg.name} on {dev}, {dname} draft: "
+                     f"spec tokens != plain")
+            if dname == "perturbed":
+                check_rejects(f"spec parity {cfg.name} on {dev}", (st, lst))
+            toks[str(dev), dname] = cont
+            res[f"{dev} {dname} acceptance"] = [st.acceptance_rate,
+                                                lst.acceptance_rate]
+    same = all(np.array_equal(toks["cpu", n], toks[str(CUDA), n])
+               for n in drafts)
+    log(f"spec parity {cfg.name}: 2 layers f32, 4x{prompt_len}, 16 new, "
+        f"spec_len 3, self and perturbed drafts: continuous == lockstep "
+        f"== plain on CPU and GPU, CPU == GPU {same}; acceptance "
+        f"(continuous, lockstep) {json.dumps(res)}")
+    if not same:
+        fail(f"spec parity {cfg.name}: CPU and GPU spec tokens disagree")
+    return dict(tokens_equal=same, **res)
+
+
+def spec_lossless(cfg, *, prompt_len=128, new=16, cache_len=512,
+                  spec_len=4):
+    """Speculative decoding is lossless at full width (f32, all layers,
+    policy off), with the self-draft and with the target's params plus
+    0.05 N(0, 1) (which must be rejected at least once, so rows roll back
+    over dead verify KV): Engine.generate continuous and lockstep, and a
+    SpecScheduler serving 4 speculative and 4 plain requests in one batch
+    of 8 slots (rows advancing by 1 and by up to spec_len + 1 side by
+    side), each give the plain greedy tokens."""
+    from repro_torch.bridge import init_params
+    from repro_torch.serving import Engine
+
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=CUDA)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(8, prompt_len)).astype(np.int32)
+    plain, _ = Engine(cfg, params, cache_len=cache_len,
+                      device=CUDA).generate(prompts, new)
+    out = {}
+    for dname in ("self", "perturbed"):
+        dp = params if dname == "self" else perturbed(params)
+        eng = Engine(cfg, params, cache_len=cache_len, draft=(cfg, dp),
+                     spec_len=spec_len, device=CUDA)
+        cont, st = eng.generate(prompts, new)
+        lock, lst = eng.generate(prompts, new, lockstep=True)
+        sched = eng.make_scheduler(num_slots=8, invariants=True)
+        sts = [sched.submit(prompts[b], new, spec=b % 2 == 0)
+               for b in range(8)]
+        sched.run()
+        mixed = np.stack([np.asarray(s.tokens) for s in sts])
+        res = dict(continuous_equal=bool(np.array_equal(cont, plain)),
+                   lockstep_equal=bool(np.array_equal(lock, plain)),
+                   mixed_equal=bool(np.array_equal(mixed, plain)),
+                   acceptance_rate=st.acceptance_rate,
+                   mean_accepted=st.mean_accepted, rounds=st.steps,
+                   lockstep_acceptance_rate=lst.acceptance_rate,
+                   lockstep_mean_accepted=lst.mean_accepted,
+                   mixed_acceptance_rate=sched.acceptance_rate,
+                   mixed_drafted=[s.drafted for s in sts])
+        name = f"spec lossless {cfg.name} {dname} draft"
+        log(f"{name} ({cfg.num_layers} layers, f32, 8x{prompt_len}, {new} "
+            f"new, spec_len {spec_len}): {json.dumps(res)}")
+        if not (res["continuous_equal"] and res["lockstep_equal"]
+                and res["mixed_equal"]):
+            fail(f"{name}: speculative tokens != plain greedy")
+        if any(s.drafted for s in sts[1::2]) or not all(s.drafted
+                                                       for s in sts[::2]):
+            fail(f"{name}: plain requests drafted or spec ones did not")
+        if dname == "perturbed":
+            check_rejects(name, (st, lst))
+            if sched.acceptance_rate >= 1.0:
+                fail(f"{name}: the mixed batch rejected no draft token")
+        out[dname] = res
+        del dp, eng, sched
+    return out
+
+
+def draft_config(cfg):
+    """The serve CLI's draft (2 layers, d_model 128) with the target's
+    vocabulary."""
+    return cfg.reduced(num_layers=2, max_d_model=128,
+                       max_vocab=cfg.vocab_size)
+
+
+def small_draft(cfg, dtype):
+    """draft_config(cfg) with random weights from seed 1."""
+    from repro_torch.bridge import init_params
+    dcfg = draft_config(cfg)
+    return dcfg, init_params(dcfg, seed=1, dtype=dtype, device=CUDA)
+
+
+def spec_expect(cfg, dcfg, rounds: int, spec_len: int):
+    """Exact launches of a continuous spec run of 8 requests admitted
+    together: one target and one draft prefill (grouped_ffn once per MoE
+    layer), then per round spec_len + 1 draft decode steps (8 tokens:
+    moe_ffn, decode_attention once per draft layer) and one verify pass
+    (8 x (1 + spec_len) tokens: decode_attention, and grouped_ffn above
+    32 tokens, moe_ffn at or below, once per target layer)."""
+    L, Ld = cfg.num_layers, dcfg.num_layers
+    sorted_verify = 8 * (1 + spec_len) > 32
+    return {"grouped_ffn": L + Ld + (rounds * L if sorted_verify else 0),
+            "moe_ffn": rounds * ((spec_len + 1) * Ld
+                                 + (0 if sorted_verify else L)),
+            "decode_attention": rounds * ((spec_len + 1) * Ld + L),
+            "ssd_scan": 0}
+
+
+def spec_served(cfg, params, prompts, plain_tokens, *, new=32,
+                cache_len=512, spec_len=4, rounds=4):
+    """The served spec path in bf16 at full width: Engine.generate with
+    the self-draft and the small draft, policy off and Algorithm 4
+    (XSharePolicy(mode="spec", k0=1, m_l=2, m_r=1, corr=1.0)). Launch
+    counters set to 0 just before each continuous run and read just
+    after; the counts must be exactly spec_expect's for the rounds the
+    run reports."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving import Engine
+
+    drafts = {"self": (cfg, params), "small": small_draft(cfg, torch.bfloat16)}
+    out = {}
+    for dname, draft in drafts.items():
+        for pol in (OFF, XSharePolicy(mode="spec", k0=1, m_l=2, m_r=1,
+                                      corr=1.0)):
+            eng = Engine(cfg, params, policy=pol, cache_len=cache_len,
+                         draft=draft, spec_len=spec_len, spec_rounds=rounds,
+                         device=CUDA)
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            toks, st = eng.generate(prompts, new)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+            want = spec_expect(cfg, draft[0], st.steps, spec_len)
+            name = f"{dname} draft, policy {pol.mode}"
+            if counts != want:
+                fail(f"spec served {name}: launches {counts}, expected "
+                     f"{want} for {st.steps} rounds")
+            if toks.shape != (8, new) or toks.min() < 0 or \
+                    toks.max() >= cfg.vocab_size:
+                fail(f"spec served {name}: bad tokens")
+            res = dict(tokens_per_s=8 * new / wall, wall_s=wall,
+                       rounds=st.steps, launches=counts,
+                       acceptance_rate=st.acceptance_rate,
+                       mean_accepted=st.mean_accepted,
+                       activated_experts=st.mean_aux("activated_experts"),
+                       selected_set=st.mean_aux("selected_set"),
+                       equal_to_plain_bf16=float(
+                           (toks == plain_tokens).mean()))
+            out[name] = res
+            log(f"spec served {cfg.name} {name}: {json.dumps(res)}")
+    return out
+
+
+def spec_profile(cfg, params, prompts, *, cache_len=512, spec_len=4,
+                 rounds=4):
+    """torch.profiler (CUDA activity only, so the host is slowed little)
+    over one spec dispatch (4 rounds, small draft, policy off) after one
+    prefill of both models: host wall and device busy time per round,
+    kernels per round and each port kernel's device ms per round."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.model import prefill
+    from repro_torch.serving.sampler import greedy
+    from repro_torch.serving.step import spec_steps_fused
+
+    dcfg, dparams = small_draft(cfg, torch.bfloat16)
+    toks = torch.as_tensor(prompts, device=CUDA)
+    B = toks.shape[0]
+
+    def full(v, dtype=torch.int32):
+        return torch.full((B,), v, dtype=dtype, device=CUDA)
+
+    lg, cache, _ = prefill(cfg, params, toks, cache_len=cache_len,
+                           capacity_factor=8.0)
+    _, dcache, _ = prefill(dcfg, dparams, toks, cache_len=cache_len,
+                           capacity_factor=8.0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        spec_steps_fused(cfg, params, dcfg, dparams, greedy(lg), cache,
+                         dcache, full(1000), full(2 ** 30), full(spec_len),
+                         full(True, torch.bool),
+                         torch.zeros((B, cfg.moe.num_experts), device=CUDA),
+                         num_rounds=rounds, spec_len=spec_len,
+                         capacity_factor=8.0)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / rounds
+    t0 = time.perf_counter()
+    kern = cuda_kernels(prof)
+    post_s = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / rounds
+    ours = port_kernels_ms(kern, rounds)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    res = dict(profiled_wall_ms_per_round=prof_ms,
+               profiler_postprocess_s=post_s,
+               device_busy_ms_per_round=busy if kern else "not measured",
+               device_idle_share=(1 - busy / prof_ms) if kern
+               else "not measured",
+               kernels_per_round=sum(e.count for e in kern) / rounds,
+               top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3
+                         / rounds, calls=e.count / rounds) for e in top],
+               port_kernels_ms_per_round=ours)
+    log(f"profile {cfg.name} spec dispatch (small draft, spec_len "
+        f"{spec_len}, {rounds} rounds): {json.dumps(res)}")
+    return res
+
+
 # ------------------------------------------------- bf16 model check ---
 
 def bf16_model_check(cfg, params, prompts, *, cache_len: int, module,
@@ -633,7 +1095,7 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
         f"{param_count(params) / 1e9:.3f} B parameters, bf16")
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(8, prompt_len)).astype(np.int32)
-    results = {}
+    results, tokens = {}, {}
     for pol in policies:
         eng = Engine(cfg, params, policy=pol, cache_len=cache_len,
                      device=CUDA)
@@ -678,10 +1140,11 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
             msg = (f", activated experts per layer "
                    f"{res['activated_experts']:.2f}")
         results[pol.mode] = res
+        tokens[pol.mode] = cont
         log(f"main path {cfg.name} policy={pol.mode}: continuous == "
             f"lockstep, {8 * new} tokens in {wall:.3f} s = "
             f"{8 * new / wall:.1f} tokens/s{msg}")
-    return results, eng.params, prompts
+    return results, eng.params, prompts, tokens
 
 
 def ssm_expect(cfg, new: int):
@@ -753,13 +1216,7 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
         ssd_ms = sum(e.self_device_time_total for e in kern
                      if any(k in e.key for k in SSD_KERNELS)) / 1e3 / per
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-        ours = {}   # the port's kernels (csrc/*.cu), by name and template
-        for e in kern:
-            kname = e.key.replace("(anonymous namespace)::", "").split(
-                "(")[0].removeprefix("void ")
-            if kname.startswith(PORT_KERNELS):
-                ours[kname] = ours.get(kname, 0.0) + \
-                    e.self_device_time_total / 1e3 / per
+        ours = port_kernels_ms(kern, per)
         out[name] = dict(
             wall_ms=wall_ms, profiled_wall_ms=runs[1][0] * 1e3 / per,
             device_busy_ms=busy_ms if kern else "not measured",
@@ -821,10 +1278,11 @@ def main() -> int:
         parity = {ARCH: path_parity(cfg, 64, 128)}
         for name in SSM_ARCHS:
             parity[name] = path_parity(ARCHS[name], 300, 320)
+        parity[f"{ARCH} spec"] = spec_parity(cfg, 64, 128)
 
     results, prof = {}, {}
     with Phase(f"main path {ARCH}"):
-        results[ARCH], params, prompts = main_path(
+        results[ARCH], params, prompts, plain_tokens = main_path(
             cfg, kernels=("grouped_ffn", "moe_ffn", "decode_attention"),
             prompt_len=128, new=32, cache_len=512,
             policies=(OFF, XSharePolicy(mode="batch", k0=1, m_l=8)))
@@ -837,6 +1295,14 @@ def main() -> int:
         bf16_check[ARCH] = bf16_model_check(
             cfg, params, prompts, cache_len=512, module=dispatch,
             attr="grouped_ffn", plain=grouped_ffn_plain)
+    with Phase(f"spec lossless {ARCH}"), torch.no_grad():
+        lossless = spec_lossless(cfg)
+        torch.cuda.empty_cache()
+    with Phase(f"spec served {ARCH}"), torch.no_grad():
+        results[f"{ARCH} spec"] = spec_served(cfg, params, prompts,
+                                              plain_tokens["off"])
+    with Phase(f"profile {ARCH} spec"), torch.no_grad():
+        prof[f"{ARCH} spec"] = spec_profile(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
     for name in SSM_ARCHS:
@@ -844,7 +1310,7 @@ def main() -> int:
         kernels = ("ssd_scan",) + (("decode_attention",)
                                    if scfg.family == "hybrid" else ())
         with Phase(f"main path {name}"):
-            results[name], params, prompts = main_path(
+            results[name], params, prompts, _ = main_path(
                 scfg, kernels=kernels, prompt_len=500, new=32,
                 cache_len=1024, policies=(OFF,),
                 expect=ssm_expect(scfg, 32))
@@ -890,8 +1356,9 @@ def main() -> int:
             tol_f32=tol[torch.float32], cases=cs))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": line, "main_path": results,
-                      "parity": parity, "bf16_check": bf16_check,
-                      "profile": prof, "card": card}),
+                      "parity": parity, "spec_lossless": lossless,
+                      "bf16_check": bf16_check, "profile": prof,
+                      "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

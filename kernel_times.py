@@ -23,7 +23,8 @@ from pathlib import Path
 
 import chip_smoke
 
-KEYS = ("dtype", "policy", "model", "lengths", "init_state", "dt_shift",
+KEYS = ("dtype", "case", "policy", "model", "lengths", "init_state",
+        "dt_shift",
         "active", "max_active", "ms", "library_ms", "ms_over_sdpa",
         "grouped_mm_ms", "kernels_per_call", "max_abs_err", "ok")
 

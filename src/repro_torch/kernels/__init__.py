@@ -10,7 +10,8 @@ Nothing is compiled or loaded on import: the library is built at the
 first launch on a CUDA tensor (``kernels/build.py``).
 """
 from repro_torch.kernels.decode_attn import (  # noqa: F401
-    decode_attention, decode_attention_plain,
+    decode_attention, decode_attention_cached, decode_attention_cached_plain,
+    decode_attention_plain,
 )
 from repro_torch.kernels.moe_ffn import (  # noqa: F401
     grouped_ffn, grouped_ffn_plain, moe_ffn, moe_ffn_plain,

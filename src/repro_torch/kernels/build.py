@@ -35,7 +35,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "grouped_ffn": [_P] * 8 + [_I] * 5 + [_P],
     "moe_ffn": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 8 + [_P],
-    "decode_attention": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _P],
+    "decode_attention": [_P] * 6 + [_I] * 12 + [ctypes.c_float, _I, _P],
     "ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
 }
 

@@ -1,9 +1,8 @@
 """Attention: GQA + RoPE, full-sequence causal attention for prefill and
 cache-based attention for decode.
 
-``cached_attention`` sends the plain decode case (one new token, full
-cache, no window, no start position) to the ``decode_attention`` kernel;
-every other case is computed here in plain PyTorch.
+``cached_attention`` sends every decode and verify step (T new tokens,
+full or rolling-window cache) to the ``decode_attention`` kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +12,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import AttnConfig
-from repro_torch.kernels import decode_attention
+from repro_torch.kernels.decode_attn import (decode_attention_cached,
+                                             decode_attention_cached_plain)
 from repro_torch.models.layers import rms_norm
 
 _NEG = -1e30
@@ -105,41 +105,21 @@ def cached_attention(q: torch.Tensor, cache_k: torch.Tensor,
     the latest position p < cur_len+T with p % C == c. Returns
     (B, T, H, dh).
 
-    T == 1 with a full cache and no start position is the decode step:
-    the query at position cur_len sees slots 0..cur_len, which is the
-    decode_attention kernel with lengths = cur_len + 1.
+    Every T and window goes to the decode_attention kernel (its plain
+    version on the CPU). start_pos, which no caller passes, is computed
+    on the CPU only and raises on the card.
     """
-    B, T, H, dh = q.shape
-    C, Hkv = cache_k.shape[1], cache_k.shape[2]
-    cur_b = _cur_rows(cur_len, B, q.device)                # (B, 1)
-    if T == 1 and window is None and start_pos is None:
-        lengths = (cur_b[:, 0] + 1).clamp(max=C).to(torch.int32)
-        out = decode_attention(q[:, 0].contiguous(), cache_k, cache_v,
-                               lengths)
-        return out[:, None]
-    rep = H // Hkv
-    scale = 1.0 / math.sqrt(dh)
-    qg = q.reshape(B, T, Hkv, rep, dh).to(cache_k.dtype)
-    s = torch.einsum("btgrd,bcgd->bgrtc", qg, cache_k)
-    s = s.float().reshape(B, H, T, C) * scale
-    slot = torch.arange(C, device=q.device)[None, None, :]
-    q_pos = (cur_b + torch.arange(T, device=q.device)[None, :])[..., None]
-    if window is None:
-        slot_pos = slot.expand(B, T, C)
-    else:
-        slot_pos = q_pos - torch.remainder(q_pos - slot, C)
-    mask = (slot_pos <= q_pos) & (slot_pos >= 0)
-    if window is not None:
-        mask &= slot_pos > q_pos - window
     if start_pos is not None:
-        mask &= slot_pos >= torch.as_tensor(start_pos, device=q.device)
-    s = torch.where(mask[:, None], s, _NEG)
-    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask[:, None]
-    pg = p.reshape(B, Hkv, rep, T, C).to(cache_v.dtype)
-    out = torch.einsum("bgrtc,bcgd->btgrd", pg, cache_v)
-    out = out.float().reshape(B, T, H, dh)
-    denom = p.sum(-1)[..., None].transpose(1, 2)
-    return (out / denom.clamp_min(1e-30)).to(q.dtype)
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "cached_attention: start_pos has no kernel (the JAX "
+                "package's form needs a (B, 1, 1) shape and no caller "
+                "passes it)")
+        return decode_attention_cached_plain(q, cache_k, cache_v, cur_len,
+                                             window=window,
+                                             start_pos=start_pos)
+    cur = _cur_rows(cur_len, q.shape[0], q.device)[:, 0]
+    return decode_attention_cached(q, cache_k, cache_v, cur, window=window)
 
 
 def update_cache(cache: torch.Tensor, new: torch.Tensor, cur_len, *,

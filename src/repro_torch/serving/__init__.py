@@ -8,7 +8,15 @@ from repro_torch.serving.errors import (  # noqa: F401
 from repro_torch.serving.scheduler import (  # noqa: F401
     Request, RequestState, Scheduler, tighten_policy,
 )
+from repro_torch.serving.spec_decode import (  # noqa: F401
+    SpecResult, greedy_accept, rollback_cur_len,
+)
+from repro_torch.serving.spec_scheduler import (  # noqa: F401
+    SpecConfig, SpecScheduler,
+)
 from repro_torch.serving.step import (  # noqa: F401
-    StepFns, build_step_fns, decode_steps_fused, gate_probe, make_fused,
+    SpecStepFns, StepFns, build_spec_fns, build_step_fns,
+    decode_steps_fused, gate_probe, make_fused, make_spec_fused,
+    spec_steps_fused,
 )
 from repro_torch.serving import errors, sampler  # noqa: F401

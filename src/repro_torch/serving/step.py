@@ -26,9 +26,10 @@ from repro_torch.models.layers import rms_norm
 from repro_torch.models.model import (decode_step, embed_tokens, evict_slot,
                                       insert_request, prefill, stack_aux)
 from repro_torch.models.moe import OFF
-from repro_torch.serving.sampler import sample_step
+from repro_torch.serving.sampler import greedy, sample_step
+from repro_torch.serving.spec_decode import greedy_accept
 
-NO_FAULT = (-1, -1)   # disabled (slot, step) NaN-injection operand
+NO_FAULT = (-1, -1)   # disabled (slot, step or round) NaN-injection operand
 
 
 def decode_steps_fused(cfg: ArchConfig, params, tok: torch.Tensor,
@@ -152,3 +153,160 @@ def build_step_fns(cfg: ArchConfig, *,
         insert=insert_request, evict=evict_slot,
         evict_scrub=lambda c, s: evict_slot(c, s, scrub=True),
         probe=probe, decode_chunk=decode_chunk)
+
+
+def spec_steps_fused(cfg: ArchConfig, params, dcfg: ArchConfig, dparams,
+                     tok: torch.Tensor, cache: dict, dcache: dict,
+                     remaining: torch.Tensor, budget: torch.Tensor,
+                     draft_len: torch.Tensor, spec_on: torch.Tensor,
+                     priors: torch.Tensor, *,
+                     num_rounds: int, spec_len: int,
+                     policy: XSharePolicy = OFF,
+                     force_window: Optional[int] = None,
+                     capacity_factor: float = 8.0,
+                     dispatch: str = "auto",
+                     fault: Tuple[int, int] = NO_FAULT):
+    """``num_rounds`` draft-then-verify rounds, speculative and plain
+    requests sharing one running batch; like decode_steps_fused, nothing
+    in the loop waits for the device.
+
+    Each round drafts ``spec_len`` tokens per slot with the draft model
+    (spec_len + 1 greedy steps: the extra one writes the last draft's
+    KV), then runs ONE target verify pass over (B, 1 + spec_len) tokens
+    routed with the policy (mode "spec": Algorithm 4 with the per-slot
+    ``priors``). Ragged acceptance (greedy_accept with the per-slot limit
+    ``min(draft_len, remaining - 1, budget)``, 0 for inactive or plain
+    slots) rolls both caches back to cur0 + num_new. A slot with limit 0
+    is plain greedy decode: accepted 0, one bonus token from the verify
+    pass's position-0 logits. Speculative slots with an exhausted budget
+    keep drafting so their draft cache stays in step, but accept
+    nothing.
+
+    tok: (B,) each slot's last emitted (uncached) token; remaining: (B,)
+    tokens still owed (0 = empty slot); budget: (B,) draft tokens a slot
+    may still spend; draft_len: (B,) per-slot draft length <= spec_len;
+    spec_on: (B,) bool, the slot runs the draft model; priors: (B, E)
+    correlation priors ((B, 0) when the target has no router).
+    fault: (slot, round) whose verify logits are poisoned with NaN;
+    (-1, -1) disables it.
+
+    Returns (tok', cache', dcache', remaining', budget',
+    new_tokens (R, B, spec_len+1), num_new (R, B), accepted (R, B),
+    drafted (R, B), aux (R, L) per key, poisoned (B,)): harvest round r
+    of slot b as ``new_tokens[r, b, :num_new[r, b]]``."""
+    B = tok.shape[0]
+    f_slot, f_round = int(fault[0]), int(fault[1])
+    use_priors = priors.shape[-1] > 0
+    poisoned = torch.zeros((B,), dtype=torch.bool, device=tok.device)
+    outs = []
+    for round_i in range(num_rounds):
+        active = (remaining > 0) & ~poisoned
+        dactive = active & spec_on
+        lim = torch.minimum(torch.minimum(draft_len,
+                                          (remaining - 1).clamp_min(0)),
+                            budget)
+        lim = torch.where(dactive, lim, 0).to(torch.int32)
+
+        # draft spec_len tokens (one extra step writes the last KV)
+        dstart = dcache["cur_len"]
+        dtok, drafts = tok, []
+        for _ in range(spec_len + 1):
+            dcur0 = dcache["cur_len"]
+            dlg, dcache, _ = decode_step(
+                dcfg, dparams, dtok[:, None], dcache,
+                capacity_factor=capacity_factor, active=dactive,
+                dispatch=dispatch)
+            dtok = torch.where(dactive, greedy(dlg[:, -1]), dtok)
+            dcache["cur_len"] = torch.where(dactive, dcur0 + 1, dcur0)
+            drafts.append(dtok)
+        drafts = torch.stack(drafts[:spec_len], dim=1)    # (B, spec_len)
+
+        # one verify pass over (B, 1 + spec_len)
+        verify_in = torch.cat([tok[:, None], drafts], dim=1)
+        cur0 = cache["cur_len"]
+        vlg, cache, aux = decode_step(
+            cfg, params, verify_in, cache, policy=policy,
+            spec_shape=(B, 1 + spec_len), force_window=force_window,
+            capacity_factor=capacity_factor, active=active,
+            dispatch=dispatch,
+            spec_priors=(priors * active[:, None] if use_priors else None))
+        if round_i == f_round and 0 <= f_slot < B:
+            vlg = vlg.clone()
+            vlg[f_slot] = float("nan")
+        finite = torch.isfinite(vlg).reshape(B, -1).all(dim=1)
+        ok = active & finite
+        poisoned = poisoned | (active & ~finite)
+
+        res = greedy_accept(vlg, drafts, limit=lim)
+        num_new = torch.where(ok, res.num_new, 0).to(torch.int32)
+        # ragged rollback: both caches advance by this round's emission;
+        # verify KV written above cur0 + num_new is dead and overwritten
+        # by later rounds
+        cache["cur_len"] = cur0 + num_new
+        dcache["cur_len"] = torch.where(dactive, dstart + num_new,
+                                        dcache["cur_len"])
+        x0 = torch.gather(res.new_tokens, 1,
+                          res.accepted[:, None].long())[:, 0]
+        tok = torch.where(ok, x0, tok)
+        remaining = remaining - num_new
+        budget = budget - torch.where(dactive, lim, 0)
+        outs.append((res.new_tokens, num_new, res.accepted, lim, aux))
+    new_tokens, num_new, accepted, drafted, auxs = zip(*outs)
+    return (tok, cache, dcache, remaining, budget,
+            torch.stack(new_tokens), torch.stack(num_new),
+            torch.stack(accepted), torch.stack(drafted), stack_aux(auxs),
+            poisoned)
+
+
+@dataclass
+class SpecStepFns:
+    """Speculative-decoding functions layered on a StepFns bundle
+    (serving/spec_scheduler.py drives both)."""
+    dprefill: Callable   # (dparams, tokens) -> (lg, dcache, aux)
+    fused: Callable      # (p, dp, tok, cache, dcache, remaining, budget,
+    #                       draft_len, spec_on, priors, fault) -> 11-tuple
+    spec_len: int        # max draft tokens per round
+    num_rounds: int      # draft-verify rounds per dispatch
+
+
+def make_spec_fused(cfg: ArchConfig, dcfg: ArchConfig, *,
+                    policy: XSharePolicy = OFF,
+                    spec_len: int,
+                    num_rounds: int,
+                    force_window: Optional[int] = None,
+                    capacity_factor: float = 8.0,
+                    dispatch: str = "auto") -> Callable:
+    """One draft-verify loop closure (split out, like make_fused, so the
+    degradation ladder can make tightened-policy variants)."""
+    def fused(p, dp, tok, c, dc, rem, bud, dl, so, pri, fault=NO_FAULT):
+        return spec_steps_fused(
+            cfg, p, dcfg, dp, tok, c, dc, rem, bud, dl, so, pri,
+            num_rounds=num_rounds, spec_len=spec_len, policy=policy,
+            force_window=force_window, capacity_factor=capacity_factor,
+            dispatch=dispatch, fault=fault)
+    return fused
+
+
+def build_spec_fns(cfg: ArchConfig, dcfg: ArchConfig, *,
+                   policy: XSharePolicy = OFF,
+                   spec_len: int,
+                   num_rounds: int = 4,
+                   cache_len: int = 512,
+                   force_window: Optional[int] = None,
+                   capacity_factor: float = 8.0,
+                   dispatch: str = "auto") -> SpecStepFns:
+    """The speculative bundle for one (target, draft) pair. ``policy``
+    must already be spec-compatible (mode "off" or "spec"; the Engine
+    maps other modes to OFF for the verify pass)."""
+    def dpre(p, t):
+        return prefill(dcfg, p, t, cache_len=cache_len,
+                       capacity_factor=capacity_factor)
+
+    return SpecStepFns(
+        dprefill=dpre,
+        fused=make_spec_fused(cfg, dcfg, policy=policy, spec_len=spec_len,
+                              num_rounds=num_rounds,
+                              force_window=force_window,
+                              capacity_factor=capacity_factor,
+                              dispatch=dispatch),
+        spec_len=spec_len, num_rounds=num_rounds)

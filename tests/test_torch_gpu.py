@@ -274,6 +274,107 @@ def test_decode_attention_refuses_misaligned_tensors(cuda):
         K.decode_attention(q, kv, kv, lengths)
 
 
+# ------------------------------------------ the cached_attention contract
+
+def _cached_case(g, dev, dtype, B, T, H, Hkv, dh, C, cur):
+    q = rand(g, (B, T, H, dh), dtype).to(dev)
+    k = rand(g, (B, C, Hkv, dh), dtype).to(dev)
+    v = rand(g, (B, C, Hkv, dh), dtype).to(dev)
+    return q, k, v, torch.as_tensor(cur, dtype=torch.int32).to(dev)
+
+
+def _cached_check(dev, g, dtype, T, H, Hkv, dh, window):
+    """Three rows: a full cache with cur_len ragged over [0, C - T]; a
+    rolling window of 40 in a cache of 48 with cur_len before and past
+    C (the cache wraps)."""
+    from repro_torch import kernels as K
+    if window is None:
+        C = 96
+        cur = [0, 37, C - T]
+    else:
+        C = window + 8
+        cur = [C - 3, 2 * C + 5, 3 * C - 1]
+    args = _cached_case(g, dev, dtype, 3, T, H, Hkv, dh, C, cur)
+    before = K.decode_attention.launches
+    out = K.decode_attention_cached(*args, window=window)
+    assert K.decode_attention.launches == before + 1
+    ref = K.decode_attention_cached_plain(*args, window=window)
+    check(out, ref, dtype)
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("T", [1, 2, 5, 8])
+def test_decode_attention_cached_kernel(cuda, T, rep, dh):
+    """T queries per row (one verify pass: 1 + L_s), H / Hkv = rep, every
+    head dim, full and windowed caches, f32 and bf16."""
+    g = torch.Generator().manual_seed(T * 100 + rep * 10 + dh)
+    for dtype in (torch.float32, torch.bfloat16):
+        for window in (None, 40):
+            _cached_check(cuda, g, dtype, T, 2 * rep, 2, dh, window)
+
+
+# granite-moe's verify shape (B 8, 1 + L_s = 5, cache 512, 16 / 8 heads of
+# 64) at the lengths it serves, and its heads under a rolling window of
+# 128 (cache 640) with cur_len over three wraps
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 128], ids=["full", "window"])
+def test_decode_attention_cached_verify_shape(cuda, dtype, window):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(5)
+    C = 512 if window is None else window + 512
+    cur = torch.randint(128, 161, (8,), generator=g) if window is None \
+        else torch.randint(0, 3 * C, (8,), generator=g)
+    args = _cached_case(g, cuda, dtype, 8, 5, 16, 8, 64, C, cur)
+    out = K.decode_attention_cached(*args, window=window)
+    check(out, K.decode_attention_cached_plain(*args, window=window), dtype)
+    for _ in range(3):
+        assert torch.equal(out, K.decode_attention_cached(*args,
+                                                          window=window)), \
+            "decode_attention must give the same bits call after call"
+
+
+@pytest.mark.parametrize("window", [None, 128], ids=["full", "window"])
+def test_decode_attention_cached_is_at_most_two_kernels(cuda, window):
+    from repro_torch import kernels as K
+    cuda_kernels_of = _chip_smoke().cuda_kernels_of
+    g = torch.Generator().manual_seed(6)
+    C = 512 if window is None else window + 512
+    args = _cached_case(g, cuda, torch.bfloat16, 8, 5, 16, 8, 64, C,
+                        torch.randint(128, 161, (8,), generator=g))
+    n, per_kernel = cuda_kernels_of(
+        lambda: K.decode_attention_cached(*args, window=window))
+    assert 1 <= n <= 2, f"one decode_attention call ran {n} CUDA " \
+        f"kernels: {per_kernel}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_cached_one_query_equals_lengths_contract(cuda,
+                                                                   dtype):
+    """T = 1 on a full cache is the Pallas contract with lengths =
+    cur_len + 1: the same bits."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(7)
+    for H, Hkv, S in ((16, 8, 512), (32, 32, 1024)):
+        lengths = torch.randint(1, S + 1, (8,), generator=g)
+        q, k, v, lens = _attn_case(g, cuda, dtype, 8, H, Hkv, 64, S,
+                                   lengths)
+        one = K.decode_attention(q, k, v, lens)
+        cached = K.decode_attention_cached(q[:, None].contiguous(), k, v,
+                                           lens - 1)
+        assert torch.equal(one, cached[:, 0])
+
+
+def test_cached_attention_start_pos_raises_on_cuda(cuda):
+    from repro_torch.models.attention import cached_attention
+    q = torch.zeros((2, 3, 4, 64), device=cuda)
+    kv = torch.zeros((2, 16, 2, 64), device=cuda)
+    cur = torch.zeros((2,), dtype=torch.int32, device=cuda)
+    with pytest.raises(NotImplementedError, match="start_pos"):
+        cached_attention(q, kv, kv, cur,
+                         start_pos=torch.zeros((2, 1, 1), device=cuda))
+
+
 def _grouped_case(g, dev, dtype, d, E, f, idx, w, block_t=None):
     from repro_torch.models.dispatch import dispatch_plan, gather_tokens
     x = rand(g, (idx.shape[0], d), dtype).to(dev)

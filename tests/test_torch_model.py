@@ -200,8 +200,8 @@ def test_cache_surgery_matches_jax(moe_pair):
                                             (1, None, True), (3, None, False),
                                             (4, 24, False)])
 def test_cached_attention_matches_jax(T, window, start):
-    """T = 1 with a full cache goes through decode_attention (lengths =
-    cur_len + 1); windowed, multi-token and start_pos cases stay plain."""
+    """Every case takes the decode_attention kernel's plain version on the
+    CPU (the kernel on the card); start_pos is computed on the CPU only."""
     rng = np.random.default_rng(T * 10 + (window or 0))
     B, H, Hkv, dh, C = 3, 4, 2, 32, 40
     q = rng.standard_normal((B, T, H, dh)).astype(np.float32)

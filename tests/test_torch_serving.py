@@ -237,9 +237,14 @@ def test_sampling_is_seeded(moe):
 
 
 def test_unported_options_raise(moe):
+    """Speculative decoding raises for an SSM target (a rejected draft
+    would need its state rolled back); prefix embeddings and fault
+    injection are not ported yet."""
     tcfg, tp = moe[1], moe[3]
-    with pytest.raises(NotImplementedError):
-        Engine(tcfg, tp, draft=(tcfg, tp), spec_len=3, device="cpu")
+    scfg = small(ARCHS, "mamba2-370m")
+    sp = bridge.init_params(scfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="rolling back cur_len"):
+        Engine(scfg, sp, draft=(scfg, sp), spec_len=3, device="cpu")
     eng = Engine(tcfg, tp, device="cpu")
     with pytest.raises(NotImplementedError):
         eng.generate(moe[4], 4, prefix_embeds=np.zeros((3, 2, 128)))
