@@ -25,7 +25,13 @@ each prints its wall time):
                 three at the shapes of granite's 2-layer draft (d 128,
                 4 experts top-2, 2 / 2 heads of 64): its 8 x 128
                 prefill, its 8-token decode steps, one query per row at
-                cur_len 128-160);
+                cur_len 128-160; decode_attention also at h2o-danube-1.8b's
+                decode and verify shapes: 4 rows, T = 1 and 5, 32 / 8
+                heads of 80, its window of 4096 in a 4608-slot cache,
+                cur_len past the cache so it wraps, beside SDPA with the
+                same mask; its bf16 cases at a max abs error of 4e-3, and
+                every bf16 decode_attention case of this cached contract
+                also against f32 math on its bf16 inputs);
                 ssd_scan at mamba2-370m's and zamba2-1.2b's prefill
                 shapes, once more from a nonzero initial state, and
                 with dt ~ 0.01, where the state carried across chunks
@@ -54,6 +60,10 @@ each prints its wall time):
                 requests of 500 prompt tokens, 32 new each, policy off:
                 ssd_scan once per SSM layer per prefill, decode_attention
                 once per shared-block application per decode round;
+                h2o-danube-1.8b (24 layers, head dim 80, sliding window
+                4096), 4 requests of 4600 prompt tokens, 32 new, so its
+                rolling cache of 4608 wraps 8 tokens into decoding:
+                decode_attention once per layer per decode step;
   5. profile    torch.profiler over a prefill and 8 decode steps of
                 granite-moe (8 x 128 tokens) and of mamba2-370m (8 x 500),
                 with ssd_scan's share of the mamba2 device time, and (CUDA
@@ -74,7 +84,24 @@ each prints its wall time):
                 2-layer draft at the target's vocabulary, under policy
                 off and Algorithm 4, exact launch counts of the three
                 kernels from the rounds each run reports, with tokens/s,
-                acceptance and activated experts printed.
+                acceptance and activated experts printed;
+  8. durability granite-moe through the crash-tolerant FrontDoor at full
+                width, bf16, 8 x 128 prompts, 32 new, 8 slots, journal
+                and snapshots every 2 rounds: (a) fault-free; (b) killed
+                entering round 3 with a torn journal write, then
+                recover(); (c) the seeded chaos campaign
+                sample_campaign(10, ..., p_crash=1.0), rids 6 and 7
+                arriving one at a time into the running batch, then
+                recover(): NaN, insert failure, stall and crash all
+                delivered, one request quarantined;
+                (d) speculative requests (small draft, spec_len 4)
+                killed and recovered. Streams equal Engine.generate's
+                tokens (a quarantined one a prefix), no request lost,
+                replay fidelity 1.0, every rid finished in a whole
+                journal; the recovered incarnation launches all three
+                kernels and holds no second cache. Prints survival,
+                chaos / fault-free tokens/s, recovery wall time (to the
+                first fresh token), durable and replayed tokens.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -103,6 +130,14 @@ PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain version on the same inputs: the repo's kernel-test
 # tolerances (tests/test_kernels.py), atol = rtol
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# danube's bf16 decode_attention against its plain bf16 version: at 4096
+# live positions an output's rms is ~sqrt(e / 4096) = 0.026, so TOL's
+# 2e-2 would pass a wrong kernel; the plain version's own rounding gives
+# 1.5e-3, and the limit is about three times that
+DANUBE_BF16_ABS = 4e-3
+# (atol, rtol) of a bf16 output against f32 math on its bf16 inputs: one
+# rounding to bf16 is within 2^-9 of the value
+EXACT_BF16 = (1e-5, 2.0 ** -8)
 # the SSD scan's (tests/test_kernels.py: chunked vs sequential), atol = rtol
 SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 # path parity, f32 CPU vs f32 GPU: sums over d = 1024 / 2048 run in
@@ -110,6 +145,7 @@ SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 PARITY_LOGIT_TOL = 1e-3
 ARCH = "granite-moe-1b-a400m"
 SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
+DANUBE = "h2o-danube-1.8b"
 SSD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")   # the three passes of ssd_scan
 # every __global__ function of src/repro_torch/kernels/csrc (name prefixes)
@@ -145,18 +181,26 @@ CUDA = torch.device("cuda")
 def time_ms(fn, iters: int = 20, warmup: int = 3):
     """Median time of one call in ms (CUDA events), the L2 cache flushed
     before each call so weights and KV come from device memory. A spin
-    kernel (~0.5 ms) after the flush keeps the card busy while the host
-    enqueues the call, so a call shorter than its own host overhead is
-    timed by its device work, not by the host's."""
+    kernel after the flush keeps the card busy while the host enqueues
+    the call, so a call shorter than its own host overhead is timed by
+    its device work, not by the host's: it spins at least ~0.5 ms, and
+    twice the host's enqueue time of the last warm-up call (a plain
+    version's dozens of eager ops can take the host longer than that)."""
     global _FLUSH
     if _FLUSH is None:
         _FLUSH = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
+        host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # ~2e9 cycles a second; at most ~50 ms
+    spin = int(min(1e8, max(1e6, 4e9 * host_s)))
     times = []
     for _ in range(iters):
         _FLUSH.zero_()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(spin)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -365,7 +409,31 @@ def kernel_cases(archs):
                 cfg.attn, kind, dtype, gv))
     for kernel, cases in draft_cases(cfg, cached).items():
         out[kernel] += cases
+    out["decode_attention"] += danube_attention_cases(archs)
     return out
+
+
+def danube_attention_cases(archs):
+    """decode_attention at h2o-danube-1.8b's decode and verify shapes:
+    4 rows, 32 / 8 heads of 80 (a head dim that is not a power of two),
+    its sliding window of 4096 in a rolling cache of 4096 +
+    WINDOW_MARGIN = 4608 slots, cur_len past C (the cache has wrapped),
+    T = 1 and T = 5, in f32 and bf16. Last and on their own generator;
+    none in a tree whose kernel has no head dim 80 (an older commit's,
+    timed by kernel_times.py)."""
+    from repro_torch.kernels import decode_attn
+    from repro_torch.models.model import WINDOW_MARGIN
+    if 80 not in decode_attn._HEAD_DIMS:
+        return []
+    a = archs[DANUBE].attn
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(8080)
+    wc = (a.sliding_window, a.sliding_window + WINDOW_MARGIN)
+    return [verify_attention_case(a, "window", dtype, g, T=T, label=DANUBE,
+                                  B=4, window_cache=wc,
+                                  bf16_abs=DANUBE_BF16_ABS)
+            for dtype, T in itertools.product(
+                (torch.float32, torch.bfloat16), (1, 5))]
 
 
 def draft_cases(cfg, cached: bool):
@@ -419,21 +487,35 @@ def cached_mask(cur, T: int, C: int, window):
     return mask
 
 
-def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH):
-    """decode_attention under the cached_attention contract, 8 rows of T
-    queries (granite's verify shape: 1 + L_s = 5) at heads ``a``: cur_len
-    ragged over [0, C - T] or at the served lengths 128-160 in a cache of
-    512, or a rolling window of 128 in a cache of 640 with cur_len over
-    [0, 3C), so the cache wraps. Beside its bound (the live positions'
-    bytes) and SDPA with the same boolean mask."""
+def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH, B=8,
+                          window_cache=None, bf16_abs=None):
+    """decode_attention under the cached_attention contract, B rows of T
+    queries (granite's verify shape: 8 x (1 + L_s = 5)) at heads ``a``:
+    cur_len ragged over [0, C - T] or at the served lengths 128-160 in a
+    cache of 512, or a rolling window of 128 in a cache of 640 with
+    cur_len over [0, 3C), so the cache wraps; ``window_cache`` =
+    (window, C) gives another window, cur_len then over [C, 3C), past C.
+    Beside its bound (the live positions' bytes) and SDPA with the same
+    boolean mask.
+
+    Held against its plain version at TOL, or in bf16 at a max abs error
+    of ``bf16_abs`` where that is given; a bf16 output also against the
+    plain version's f32 math on the same (bf16) inputs at EXACT_BF16: the
+    kernel computes in f32 and rounds once, so a slot dropped or counted
+    twice (~p_i |v_i|, 2e-4 at 4096 live positions) shows there even
+    where it hides in the plain bf16 version's own rounding."""
     from repro_torch.kernels import (decode_attention_cached,
                                      decode_attention_cached_plain)
-    B, H, Hkv, dh = 8, a.num_heads, a.num_kv_heads, a.head_dim
+    H, Hkv, dh = a.num_heads, a.num_kv_heads, a.head_dim
     sz = torch.finfo(dtype).bits // 8
-    window = 128 if kind == "window" else None
-    C = 640 if kind == "window" else 512
-    lo, hi = {"ragged": (0, C - T), "served": (128, 160),
-              "window": (0, 3 * C - 1)}[kind]
+    if window_cache is not None:
+        window, C = window_cache
+        lo, hi = C, 3 * C - 1
+    else:
+        window = 128 if kind == "window" else None
+        C = 640 if kind == "window" else 512
+        lo, hi = {"ragged": (0, C - T), "served": (128, 160),
+                  "window": (0, 3 * C - 1)}[kind]
     cur = torch.randint(lo, hi + 1, (B,), generator=g, device=CUDA,
                         dtype=torch.int32)
     q = (torch.randn((B, T, H, dh), generator=g, device=CUDA)).to(dtype)
@@ -452,6 +534,18 @@ def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH):
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask[:, None], enable_gqa=True)
     ker, ref = kernel(), plain()
+    err = max_err(ker, ref)
+    ok = err <= bf16_abs if bf16_abs is not None and \
+        dtype == torch.bfloat16 else close(ker, ref, dtype)
+    exact = {}
+    if dtype == torch.bfloat16:
+        ref32 = decode_attention_cached_plain(q.float(), kc.float(),
+                                              vc.float(), cur, window=window)
+        atol, rtol = EXACT_BF16
+        exact = dict(exact_max_abs_err=max_err(ker, ref32),
+                     exact_ok=bool(torch.allclose(ker.float(), ref32,
+                                                  atol=atol, rtol=rtol)))
+        ok = ok and exact["exact_ok"]
     # each live slot (seen by any query of its row) read once per KV
     # head; q read and out written once; QK and PV: 4 dh per (query
     # head, live pair)
@@ -465,15 +559,20 @@ def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH):
         lengths=f"cur_len {lo}-{hi}",
         shape=f"B={B} T={T} C={C} H={H} Hkv={Hkv} dh={dh} "
               f"window={window} live={live}",
-        max_abs_err=max_err(ker, ref), ok=close(ker, ref, dtype),
+        max_abs_err=err, ok=ok,
+        tol=bf16_abs if bf16_abs is not None and dtype == torch.bfloat16
+        else TOL[dtype], **exact,
         ref_max_abs=float(ref.float().abs().max()),
+        ref_rms=float(ref.float().square().mean().sqrt()),
         library_max_abs_err=max_err(sdpa().transpose(1, 2), ref),
         kernels_per_call=n_kern, kernel_device_us=kern_us,
         ms=time_ms(kernel), plain_ms=time_ms(plain), bound_ms=bms,
         bound_by=by, library_ms=time_ms(sdpa))
     case["ms_over_sdpa"] = case["ms"] / case["library_ms"]
-    log(f"decode_attention {label} T={T} {kind} {dtype}: "
-        f"{case['ms']:.4f} ms, "
+    log(f"decode_attention {label} T={T} {kind} {dtype}: max abs err "
+        f"{err:.3g} (limit {case['tol']}; ref rms {case['ref_rms']:.3g}, "
+        f"max {case['ref_max_abs']:.3g}; vs f32 math "
+        f"{case.get('exact_max_abs_err')}), {case['ms']:.4f} ms, "
         f"SDPA {case['library_ms']:.4f} ms, kernel / SDPA = "
         f"{case['ms_over_sdpa']:.3f} (bound {bms:.4f}), {n_kern} CUDA "
         f"kernels per call")
@@ -1079,9 +1178,9 @@ def bf16_model_check(cfg, params, prompts, *, cache_len: int, module,
 # --------------------------------------------------------- main path ---
 
 def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
-              policies, expect=None):
-    """Engine.generate, continuous batching, 8 requests, under each
-    policy. The launch counters are set to 0 just before each policy's
+              policies, expect=None, requests: int = 8):
+    """Engine.generate, continuous batching, ``requests`` requests, under
+    each policy. The launch counters are set to 0 just before each policy's
     continuous run and read just after it; the lockstep run and the
     prefill check lie outside that window. Every kernel in ``kernels``
     must have launched; ``expect(engine)`` gives exact counts to hold."""
@@ -1094,7 +1193,7 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
     log(f"main path: {cfg.name} {cfg.num_layers} layers, "
         f"{param_count(params) / 1e9:.3f} B parameters, bf16")
     prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(8, prompt_len)).astype(np.int32)
+        0, cfg.vocab_size, size=(requests, prompt_len)).astype(np.int32)
     results, tokens = {}, {}
     for pol in policies:
         eng = Engine(cfg, params, policy=pol, cache_len=cache_len,
@@ -1118,7 +1217,7 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
         if wrong:
             fail(f"main path {cfg.name} ({pol.mode}): launches "
                  f"(counted, expected) {wrong}")
-        if cont.shape != (8, new) or not np.array_equal(cont, lock):
+        if cont.shape != (requests, new) or not np.array_equal(cont, lock):
             fail(f"main path {cfg.name} ({pol.mode}): continuous != "
                  f"lockstep")
         if cont.min() < 0 or cont.max() >= cfg.vocab_size:
@@ -1128,11 +1227,12 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
             lg, _, _ = prefill(cfg, eng.params,
                                torch.as_tensor(prompts, device=CUDA),
                                cache_len=cache_len, capacity_factor=8.0)
-        if lg.shape != (8, cfg.padded_vocab) or \
+        if lg.shape != (requests, cfg.padded_vocab) or \
                 not torch.isfinite(lg[:, :cfg.vocab_size]).all():
             fail(f"main path {cfg.name} ({pol.mode}): bad prefill logits")
-        res = dict(tokens_per_s=8 * new / wall, wall_s=wall, launches=counts,
-                   prompt_len=prompt_len, new_tokens=new)
+        res = dict(tokens_per_s=requests * new / wall, wall_s=wall,
+                   launches=counts, prompt_len=prompt_len, new_tokens=new,
+                   requests=requests)
         msg = ""
         if cfg.moe is not None:
             res.update(activated_experts=st.mean_aux("activated_experts"),
@@ -1142,8 +1242,8 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
         results[pol.mode] = res
         tokens[pol.mode] = cont
         log(f"main path {cfg.name} policy={pol.mode}: continuous == "
-            f"lockstep, {8 * new} tokens in {wall:.3f} s = "
-            f"{8 * new / wall:.1f} tokens/s{msg}")
+            f"lockstep, {requests * new} tokens in {wall:.3f} s = "
+            f"{requests * new / wall:.1f} tokens/s{msg}")
     return results, eng.params, prompts, tokens
 
 
@@ -1159,6 +1259,277 @@ def ssm_expect(cfg, new: int):
         return {"ssd_scan": cfg.num_layers, "grouped_ffn": 0, "moe_ffn": 0,
                 "decode_attention": _num_shared_apps(cfg) * rounds}
     return expect
+
+
+def dense_expect(cfg, new: int):
+    """Exact launches of a dense continuous run: decode_attention once
+    per layer per decode step (decode_chunk steps a round, until the
+    last of the new-1 tokens after the first); nothing else."""
+    def expect(eng):
+        steps = -(-(new - 1) // eng.decode_chunk) * eng.decode_chunk
+        return {"ssd_scan": 0, "grouped_ffn": 0, "moe_ffn": 0,
+                "decode_attention": cfg.num_layers * steps}
+    return expect
+
+
+# --------------------------------------------------- durability phase ---
+
+def submit_all(door, prompts, new: int):
+    """Submit every prompt, then start the door: one admission group, so
+    the prefill has Engine.generate's shape and its bits."""
+    streams = [door.submit(p, new) for p in prompts]
+    door.start()
+    return streams
+
+
+def submit_staggered(door, prompts, new: int, late: int):
+    """Submit all but the last ``late`` prompts, start the door, then each
+    of the last ones alone once the request before it has its first
+    token: each is spliced into the running batch (insert_request), where
+    a campaign's insert_fail lands."""
+    streams = [door.submit(p, new) for p in prompts[:-late]]
+    door.start()
+    for p in prompts[-late:]:
+        while not streams[-1].tokens and not streams[-1].done:
+            time.sleep(0.001)
+        streams.append(door.submit(p, new))
+    return streams
+
+
+def stream_tokens(stream):
+    return np.asarray([int(t) for t in stream.tokens])
+
+
+def durable_tokens(jp: str, sp: str) -> int:
+    """Tokens the journal and the snapshot hold, as recover() folds them."""
+    from repro_torch.serving.journal import (fold_records, load_snapshot,
+                                             read_journal)
+    table = fold_records(read_journal(jp).records, base=load_snapshot(sp))
+    return sum(len(r["tokens"]) for r in table.values())
+
+
+def recover_timed(eng, jp, sp, n: int, **kw):
+    """recover(), then the wall time until the first fresh token (one
+    past the replayed prefix of any resumed stream), then drain."""
+    from repro_torch.serving import recover
+    t0 = time.perf_counter()
+    door, report = recover(eng, journal_path=jp, snapshot_path=sp,
+                           num_slots=n, **kw)
+    resumed = [s for s in door.streams.values() if not s.done]
+    first = None
+    while first is None and not all(s.done for s in resumed):
+        if any(len(s.tokens) > s.replayed for s in resumed):
+            first = time.perf_counter() - t0
+        else:
+            time.sleep(0.001)
+    door.drain(timeout=600.0)
+    if first is None:
+        first = time.perf_counter() - t0
+    return door, report, first
+
+
+def check_recovered(name, door, report, want, jp, n, *, quarantine=False):
+    """Nothing lost, fidelity 1.0, the journal whole with a finish per
+    rid; each stream equal to ``want`` (or, under quarantine, shed as
+    numerics_nonfinite with a prefix of it)."""
+    from repro_torch.serving import read_journal
+    if door.crashed is not None:
+        fail(f"{name}: the recovered incarnation crashed: {door.crashed!r}")
+    lost = report.requests - report.resumed - report.terminal
+    stats = door.replay_stats()
+    tail = read_journal(jp)
+    finished = {r["rid"] for r in tail.records if r["t"] == "finish"}
+    if report.requests != n or lost or stats["fidelity"] != 1.0 \
+            or tail.torn or finished != set(range(n)):
+        fail(f"{name}: report {report}, replay {stats}, journal torn "
+             f"{tail.torn}, finished {sorted(finished)}")
+    quarantined = 0
+    for b in range(n):
+        s, toks = door.streams[b], stream_tokens(door.streams[b])
+        if quarantine and s.finish_reason == "numerics_nonfinite":
+            quarantined += 1
+            ok = np.array_equal(toks, want[b][:len(toks)])
+        else:
+            ok = s.finish_reason == "completed" and \
+                np.array_equal(toks, want[b])
+        if not ok:
+            fail(f"{name}: stream {b} ({s.finish_reason}) != the "
+                 f"uninterrupted run")
+    return dict(lost=lost, replay=stats, quarantined=quarantined,
+                resumed=report.resumed, terminal=report.terminal,
+                snapshot_used=report.snapshot_used,
+                torn_tail_at_recovery=report.torn_tail)
+
+
+def durability_phase(cfg, params, prompts, plain_tokens, *, new=32,
+                     cache_len=512, decode_chunk=2):
+    """The crash-tolerant front door at full width (bf16, 8 requests in
+    8 slots, admitted together): (a) a fault-free run with journal
+    and snapshots; (b) a crash entering round 3 with a torn journal
+    write, recovered from snapshot + journal tail on the same engine;
+    (c) the seeded chaos campaign sample_campaign(10, ...) through the
+    door and recover(): its plan holds a NaN on slot 6, an insert
+    failure of rid 6 (twice, inside the retry budget), a stall and a
+    crash, and all four must be delivered; rids 6 and 7 arrive one at a
+    time after the first six are decoding, so rid 6 takes the insert
+    path; (d) speculative requests (small draft, spec_len 4) killed
+    and recovered. Every stream must equal Engine.generate's continuous
+    tokens (quarantined ones a prefix, ending numerics_nonfinite), no
+    request is lost, replay fidelity 1.0; the recovered incarnation must
+    launch all three kernels and hold no more device memory than (a).
+    decode_chunk 2 makes the campaign's 32-step horizon 16 rounds, so
+    its crash (round 11) lands inside the run."""
+    import gc
+    import tempfile
+
+    from repro_torch import kernels as K
+    from repro_torch.serving import (Engine, Fault, FaultInjector,
+                                     FrontDoor, SimulatedCrash,
+                                     sample_campaign)
+
+    n = len(prompts)
+    eng = Engine(cfg, params, cache_len=cache_len, decode_chunk=decode_chunk,
+                 device=CUDA)
+    out, tmp = {}, tempfile.TemporaryDirectory()
+
+    def paths(tag):
+        return (str(Path(tmp.name) / f"{tag}.journal"),
+                str(Path(tmp.name) / f"{tag}-snap"))
+
+    def door_for(e, tag, faults=None, fsync_every=12):
+        # a crash run syncs token records every 12: each round journals
+        # 8, so the crash finds some unflushed for its torn write
+        jp, sp = paths(tag)
+        return FrontDoor(e, num_slots=n, journal_path=jp, snapshot_path=sp,
+                         snapshot_every_rounds=2, fsync_every=fsync_every,
+                         faults=faults)
+
+    def crashed(name, door):
+        if not isinstance(door.crashed, SimulatedCrash):
+            fail(f"{name}: expected a simulated crash, got "
+                 f"{door.crashed!r}")
+
+    with tmp:
+        # (a) fault-free
+        door = door_for(eng, "a", fsync_every=8)
+        t0 = time.perf_counter()
+        streams = submit_all(door, prompts, new)
+        door.drain(timeout=600.0)
+        wall_a = time.perf_counter() - t0
+        if door.crashed is not None or not all(
+                np.array_equal(stream_tokens(s), plain_tokens[b])
+                for b, s in enumerate(streams)):
+            fail("durability (a): streams != Engine.generate's tokens")
+        torch.cuda.synchronize()
+        mem_a = torch.cuda.memory_allocated()
+        cache_bytes = sum(v.numel() * v.element_size()
+                          for v in door._sched._cache.values())
+        out["a"] = dict(tokens_per_s=n * new / wall_a, wall_s=wall_a,
+                        snapshots=door.snapshots_written,
+                        memory_allocated=mem_a)
+        del door, streams
+        gc.collect()
+
+        # (b) kill and recover
+        jp, sp = paths("b")
+        door = door_for(eng, "b", FaultInjector(
+            [Fault("crash_mid_round", step=3),
+             Fault("journal_torn_write", nbytes=7)]))
+        submit_all(door, prompts, new)
+        door.drain(timeout=600.0)
+        crashed("durability (b)", door)
+        if door._sched._cache is not None:
+            fail("durability (b): the dead incarnation kept its cache")
+        durable = durable_tokens(jp, sp)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        door2, report, rec_s = recover_timed(eng, jp, sp, n)
+        torch.cuda.synchronize()
+        counts = K.launch_counts()
+        mem_b = torch.cuda.memory_allocated()
+        res = check_recovered("durability (b)", door2, report, plain_tokens,
+                              jp, n)
+        if not report.torn_tail:
+            fail("durability (b): the crash left no torn record to skip")
+        missing = [k for k in ("grouped_ffn", "moe_ffn", "decode_attention")
+                   if counts[k] <= 0]
+        if missing:
+            fail(f"durability (b): the recovered incarnation never "
+                 f"launched {missing}: {counts}")
+        if mem_b > mem_a + cache_bytes // 2:
+            fail(f"durability (b): {mem_b} bytes allocated after recovery, "
+                 f"{mem_a} after (a): a second cache ({cache_bytes}) lives")
+        out["b"] = dict(res, recovery_wall_s=rec_s, durable_tokens=durable,
+                        launches=counts, memory_allocated=mem_b,
+                        memory_over_a=mem_b - mem_a, cache_bytes=cache_bytes)
+        del door, door2
+        gc.collect()
+
+        # (c) the seeded chaos campaign
+        jp, sp = paths("c")
+        inj = sample_campaign(10, num_requests=n, num_slots=n,
+                              horizon_steps=32, p_crash=1.0)
+        plan = [f.kind for f in inj.faults]
+        t0 = time.perf_counter()
+        door = door_for(eng, "c", inj)
+        submit_staggered(door, prompts, new, late=2)
+        door.drain(timeout=600.0)
+        crashed("durability (c)", door)
+        chaos_durable = durable_tokens(jp, sp)
+        door2, report, chaos_rec_s = recover_timed(eng, jp, sp, n,
+                                                   faults=inj)
+        wall_c = time.perf_counter() - t0
+        res = check_recovered("durability (c)", door2, report, plain_tokens,
+                              jp, n, quarantine=True)
+        delivered = sorted({e[0] for e in inj.log})
+        survival = (n - res["quarantined"]) / n
+        chaos_tokens = sum(len(s.tokens) for s in door2.streams.values())
+        out["c"] = dict(res, plan=plan, delivered=delivered,
+                        survival_rate=survival, wall_s=wall_c,
+                        tokens=chaos_tokens,
+                        tokens_per_s=chaos_tokens / wall_c,
+                        recovery_wall_s=chaos_rec_s,
+                        durable_tokens=chaos_durable)
+        undelivered = {"nan_logits", "insert_fail", "stall_decode",
+                       "crash_mid_round"} - set(delivered)
+        if undelivered or res["quarantined"] < 1:
+            fail(f"durability (c): faults {sorted(undelivered)} never "
+                 f"fired or nothing was quarantined "
+                 f"({res['quarantined']}): {inj.log}")
+        del door, door2
+        gc.collect()
+
+        # (d) speculative kill and recover (small draft)
+        jp, sp = paths("d")
+        seng = Engine(cfg, params, cache_len=cache_len,
+                      draft=small_draft(cfg, torch.bfloat16), spec_len=4,
+                      device=CUDA)
+        door = door_for(seng, "d", FaultInjector(
+            [Fault("crash_mid_round", step=1),
+             Fault("journal_torn_write", nbytes=7)]))
+        submit_all(door, prompts, new)
+        door.drain(timeout=600.0)
+        crashed("durability (d)", door)
+        door2, report, spec_rec_s = recover_timed(seng, jp, sp, n)
+        res = check_recovered("durability (d)", door2, report, plain_tokens,
+                              jp, n)
+        if not all(door2.streams[b].spec for b in range(n)):
+            fail("durability (d): recovery dropped the spec flag")
+        out["d"] = dict(res, recovery_wall_s=spec_rec_s)
+        del door, door2, seng
+    summary = dict(survival_rate=out["c"]["survival_rate"],
+                   chaos_over_fault_free_tokens_per_s=out["c"]["tokens_per_s"]
+                   / out["a"]["tokens_per_s"],
+                   recovery_wall_s=out["b"]["recovery_wall_s"],
+                   durable_tokens_at_crash=out["b"]["durable_tokens"],
+                   replayed_tokens=out["b"]["replay"]["replayed_tokens"],
+                   lost_requests=out["b"]["lost"] + out["c"]["lost"]
+                   + out["d"]["lost"],
+                   card=gpu_name_power())
+    log(f"durability {cfg.name}: {json.dumps(out)}")
+    log(f"durability summary: {json.dumps(summary)}")
+    out["summary"] = summary
+    return out
 
 
 # ------------------------------------------------------ profile phase ---
@@ -1303,6 +1674,9 @@ def main() -> int:
                                               plain_tokens["off"])
     with Phase(f"profile {ARCH} spec"), torch.no_grad():
         prof[f"{ARCH} spec"] = spec_profile(cfg, params, prompts)
+    with Phase(f"durability {ARCH}"):
+        durability = durability_phase(cfg, params, prompts,
+                                      plain_tokens["off"])
     del params
     torch.cuda.empty_cache()
     for name in SSM_ARCHS:
@@ -1326,13 +1700,23 @@ def main() -> int:
                     attr="ssd_scan", plain=ssd_scan_plain)
         del params
         torch.cuda.empty_cache()
+    # the repo's one sliding-window model: 4600-token prompts, so the
+    # 4608-slot rolling cache wraps 8 tokens into decoding
+    dcfg = ARCHS[DANUBE]
+    with Phase(f"main path {DANUBE}"):
+        results[DANUBE], params, _, _ = main_path(
+            dcfg, kernels=("decode_attention",), prompt_len=4600, new=32,
+            cache_len=4608, policies=(OFF,), expect=dense_expect(dcfg, 32),
+            requests=4)
+    del params
+    torch.cuda.empty_cache()
 
     sources = {"grouped_ffn": ("src/repro_torch/kernels/csrc/grouped_ffn.cu",
                                "src/repro/kernels/moe_ffn.py:155"),
                "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
                            "src/repro/kernels/moe_ffn.py:77"),
                "decode_attention": (
-                   "src/repro_torch/kernels/csrc/decode_attn.cu",
+                   "src/repro_torch/kernels/csrc/decode_attn.cuh",
                    "src/repro/kernels/decode_attn.py:67"),
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                             "src/repro/kernels/ssd_scan.py:66")}
@@ -1358,7 +1742,7 @@ def main() -> int:
     print(json.dumps({"kernels": line, "main_path": results,
                       "parity": parity, "spec_lossless": lossless,
                       "bf16_check": bf16_check, "profile": prof,
-                      "card": card}),
+                      "durability": durability, "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

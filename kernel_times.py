@@ -11,7 +11,8 @@ another commit unpacked under ``build/``. Every kernel case of
 that tree's kernels, with this checkout's ``time_ms`` (L2 flushed, the
 host's enqueueing outside the timed window). It holds each kernel to its
 plain version as those functions do, and checks no design goal of this
-checkout's kernels. Prints one JSON line per case (source, kernel, dtype,
+checkout's kernels. Cases a tree's kernel has no instance for (head dim
+80, h2o-danube's, before it was built) are left out for that tree. Prints one JSON line per case (source, kernel, dtype,
 case, ms, the library call's or yardstick's ms, CUDA kernels per call);
 FILE gets every case in full. To compare commits A and B, run A, B, B, A in one call."""
 from __future__ import annotations

@@ -3,7 +3,7 @@ PyTorch version.
 
   grouped_ffn       prefill's sorted expert FFN     (csrc/grouped_ffn.cu)
   moe_ffn           a decode step's masked FFN      (csrc/moe_ffn.cu)
-  decode_attention  flash-decode GQA over the cache (csrc/decode_attn.cu)
+  decode_attention  flash-decode GQA over the cache (csrc/decode_attn.cuh)
   ssd_scan          Mamba2's chunked SSD scan       (csrc/ssd_scan.cu)
 
 Nothing is compiled or loaded on import: the library is built at the

@@ -36,6 +36,7 @@ SIGNATURES = {
     "grouped_ffn": [_P] * 8 + [_I] * 5 + [_P],
     "moe_ffn": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 8 + [_P],
     "decode_attention": [_P] * 6 + [_I] * 12 + [ctypes.c_float, _I, _P],
+    "decode_attention_step": [_I, _I],
     "ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
 }
 

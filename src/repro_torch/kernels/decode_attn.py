@@ -1,4 +1,4 @@
-"""Flash-decode GQA attention kernel (``csrc/decode_attn.cu``) and its
+"""Flash-decode GQA attention kernel (``csrc/decode_attn.cuh``) and its
 plain PyTorch versions.
 
 Two entry points reach the one kernel:
@@ -24,26 +24,30 @@ import torch
 
 from repro_torch.kernels import build
 
-_HEAD_DIMS = (32, 64, 128, 256)   # csrc/decode_attn.cu's instances
+_HEAD_DIMS = (32, 64, 80, 128, 256)   # csrc/decode_attn_dh*.cu
 _MAX_TILE = 8     # queries of one KV head the kernel holds in registers
-_WARPS, _UNROLL = 4, 4   # the split kernel's NW and U (csrc/decode_attn.cu)
 _BLOCKS_PER_SM = 16      # the most split blocks per SM a full cache gives
 _NEG = -1e30
 
 
-def split_plan(B: int, S: int, Hkv: int, dh: int, itemsize: int,
-               sms: int) -> tuple:
+@functools.lru_cache(maxsize=None)
+def block_step(dh: int, dtype_code: int) -> int:
+    """Positions a split block walks per step at head dim ``dh`` in the
+    dtype of ``build.dtype_code``: the unit of a span. The kernel library
+    owns the lane geometry behind it (csrc/decode_attn.cu
+    ``decode_attention_step``) and refuses a span of other units."""
+    return build.lib().decode_attention_step(dh, dtype_code)
+
+
+def split_plan(B: int, S: int, Hkv: int, step: int, sms: int) -> tuple:
     """(n_split, span): the kernel cuts the S positions a row's queries
     can see (a full cache's slots, or a window's positions) into n_split
     spans of ``span`` positions, one block per (span, KV head, row) — B
-    counts rows times query tiles. A span is a whole
-    number of the block's steps (each lane loads 16 bytes of a row per
-    position, ``_UNROLL`` positions a step), as short as keeps the grid
-    under ``_BLOCKS_PER_SM`` blocks per SM when every position is live.
-    It reads shapes only, never the positions, so choosing it needs no
-    host sync."""
-    lanes_per_row = min(32, dh * itemsize // 16)
-    step = _WARPS * _UNROLL * (32 // lanes_per_row)
+    counts rows times query tiles. A span is a whole number of the
+    block's ``step`` positions (``block_step``), as short as keeps the
+    grid under ``_BLOCKS_PER_SM`` blocks per SM when every position is
+    live. It reads shapes only, never the positions, so choosing it
+    needs no host sync."""
     steps = -(-S // step)
     most = max(1, _BLOCKS_PER_SM * sms // (B * Hkv))   # splits allowed
     span = -(-steps // min(steps, most)) * step
@@ -93,8 +97,10 @@ def decode_attention_cached_plain(q: torch.Tensor, cache_k: torch.Tensor,
                                   window: Optional[int] = None,
                                   start_pos: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
-    """The JAX package's ``cached_attention`` (models/attention.py:276),
-    scores in the cache's dtype, softmax in f32.
+    """The JAX package's ``cached_attention`` (models/attention.py:276):
+    q cast to the cache's dtype, scores in that dtype, softmax in f32,
+    the output in q's dtype; a 1-byte (float8) cache is dequantized to
+    bf16 for each use, as the reference does.
 
     q: (B, T, H, dh) for the tokens written at [cur_len, cur_len+T);
     cache_k/v: (B, C, Hkv, dh); cur_len a scalar or (B,). A full cache
@@ -108,6 +114,9 @@ def decode_attention_cached_plain(q: torch.Tensor, cache_k: torch.Tensor,
         .expand(B, 1)
     rep = H // Hkv
     scale = 1.0 / math.sqrt(dh)
+    if cache_k.element_size() < 2:
+        cache_k = cache_k.to(torch.bfloat16)
+        cache_v = cache_v.to(torch.bfloat16)
     qg = q.reshape(B, T, Hkv, rep, dh).to(cache_k.dtype)
     s = torch.einsum("btgrd,bcgd->bgrtc", qg, cache_k)
     s = s.float().reshape(B, H, T, C) * scale
@@ -168,8 +177,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # window + T - 1 positions, each in slot position mod C
     win = 0 if window is None else min(window, C)
     nq, n_qt = query_tiles(T, H // Hkv)
+    code = build.dtype_code(q)
     n_split, span = split_plan(B * n_qt, win + T - 1 if win else C, Hkv,
-                               dh, q.element_size(),
+                               block_step(dh, code),
                                _sm_count(q.device.index or 0))
     part = torch.empty(n_split * B * T * H * (dh + 2), dtype=torch.float32,
                        device=q.device)
@@ -177,7 +187,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(build.lib().decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), cur.data_ptr(),
         part.data_ptr(), out.data_ptr(), B, C, T, H, Hkv, dh, win, shift,
-        nq, n_qt, n_split, span, 1.0 / math.sqrt(dh), build.dtype_code(q),
+        nq, n_qt, n_split, span, 1.0 / math.sqrt(dh), code,
         build.stream_ptr(q.device)), "decode_attention")
     decode_attention.launches += 1
     return out
@@ -203,10 +213,22 @@ def decode_attention_cached(q: torch.Tensor, cache_k: torch.Tensor,
     """Flash-decode attention under ``cached_attention``'s contract: q
     (B, T, H, dh) for the tokens just written at [cur_len, cur_len + T)
     of the cache (B, C, Hkv, dh); cur_len (B,); a rolling-window cache
-    when ``window`` is set. Returns (B, T, H, dh)."""
+    when ``window`` is set. Returns (B, T, H, dh) in q's dtype.
+
+    A cache of another dtype than q's is read as the reference reads it:
+    q is cast to the cache's dtype (on the card too), and the output
+    cast back. The card has no instance for a 1-byte (float8) cache and
+    refuses it; ``models.model.init_cache`` refuses such a cache on the
+    card before it is made."""
     if q.device.type == "cpu":
         return decode_attention_cached_plain(q, cache_k, cache_v, cur_len,
                                              window=window)
+    if cache_k.element_size() < 2:
+        raise ValueError(f"decode_attention: no {cache_k.dtype} (e4m3) "
+                         f"instance for a 1-byte cache on the card")
+    if q.dtype != cache_k.dtype:
+        return _launch(q.to(cache_k.dtype), cache_k, cache_v, cur_len,
+                       window, 0).to(q.dtype)
     return _launch(q, cache_k, cache_v, cur_len, window, 0)
 
 

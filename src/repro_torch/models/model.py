@@ -230,6 +230,18 @@ def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
 
 # ---------------------------------------------------------------- cache ---
 
+def check_cache_dtype(dtype, device) -> None:
+    """Refuse, before anything is allocated, a 1-byte (float8) cache on
+    the card: decode_attention has no e4m3 instance to read it. The CPU
+    reads one through the plain version, dequantized per use as the JAX
+    package does."""
+    if dtype is not None and device is not None \
+            and torch.device(device).type == "cuda" and dtype.itemsize < 2:
+        raise ValueError(
+            f"a {dtype} KV cache cannot be read on the card: "
+            f"decode_attention has no e4m3 (1-byte) instance")
+
+
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
                force_window: Optional[int] = None,
                device=None) -> Dict:
@@ -238,8 +250,10 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
     window + margin); for the SSM and hybrid families the conv tails
     ``conv_x`` / ``conv_B`` / ``conv_C`` (L, batch, K-1, ·) and the f32
     ``state`` (L, batch, nh, hd, ds); for the hybrid also the shared
-    block's ``shared_k`` / ``shared_v`` (apps, batch, C, Hkv, dh)."""
+    block's ``shared_k`` / ``shared_v`` (apps, batch, C, Hkv, dh). A
+    1-byte dtype on the card raises (check_cache_dtype)."""
     _check_family(cfg)
+    check_cache_dtype(dtype, device)
     win = effective_window(cfg, force_window=force_window)
     C = (win + WINDOW_MARGIN) if win is not None else cache_len
     L = cfg.num_layers
@@ -319,8 +333,11 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             cache_dtype=None,
             capacity_factor: float = 1.25,
             dispatch: str = "auto"):
-    """Process the prompt and build the decode cache. tokens: (B, S).
-    Returns (last-position logits (B, V), cache, aux)."""
+    """Process the prompt and build the decode cache. tokens: (B, S);
+    cache_dtype defaults to the activations' (a 1-byte one raises on the
+    card, before any work). Returns (last-position logits (B, V), cache,
+    aux)."""
+    check_cache_dtype(cache_dtype, tokens.device)
     x = embed_tokens(cfg, params, tokens)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)

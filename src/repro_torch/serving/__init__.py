@@ -5,6 +5,16 @@ from repro_torch.serving.errors import (  # noqa: F401
     ServingError, ShuttingDown, TransientFault, WatchdogTimeout,
     error_for_reason,
 )
+from repro_torch.serving.faults import (  # noqa: F401
+    Fault, FaultInjector, InjectedFault, SimulatedCrash, sample_campaign,
+)
+from repro_torch.serving.frontdoor import (  # noqa: F401
+    FrontDoor, RecoveryReport, TokenStream, recover,
+)
+from repro_torch.serving.journal import (  # noqa: F401
+    JournalTail, JournalWriter, Snapshot, fold_records, load_snapshot,
+    read_journal, save_snapshot,
+)
 from repro_torch.serving.scheduler import (  # noqa: F401
     Request, RequestState, Scheduler, tighten_policy,
 )
@@ -19,4 +29,4 @@ from repro_torch.serving.step import (  # noqa: F401
     decode_steps_fused, gate_probe, make_fused, make_spec_fused,
     spec_steps_fused,
 )
-from repro_torch.serving import errors, sampler  # noqa: F401
+from repro_torch.serving import errors, faults, sampler  # noqa: F401

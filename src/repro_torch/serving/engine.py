@@ -9,6 +9,10 @@
   serving/spec_scheduler.py  with a draft model (``draft=``,
                         ``spec_len`` > 0): draft-then-verify rounds,
                         speculative and plain requests in one batch
+  serving/frontdoor.py  ``make_frontdoor``: token streams over a
+                        scheduler, with a journal, snapshots and
+                        ``recover()`` (serving/journal.py,
+                        serving/faults.py)
 
 ``generate`` serves a batch through the scheduler with every request
 arriving at t=0, which under greedy sampling is token-exact with the
@@ -202,6 +206,14 @@ class Engine:
             self.cfg, self.params, draft=self.draft, spec_cfg=sc,
             spec_fns=spec_fns, spec_fused_cache=self._spec_fused_levels,
             **common)
+
+    def make_frontdoor(self, *, num_slots: int, **door_kw):
+        """A started crash-tolerant streaming FrontDoor over this engine
+        (serving/frontdoor.py): per-request token streams, mid-stream
+        cancel, graceful drain, and — with journal_path / snapshot_path
+        set — durable recovery via recover()."""
+        from repro_torch.serving.frontdoor import FrontDoor
+        return FrontDoor(self, num_slots=num_slots, **door_kw).start()
 
     def generate(self, prompts: np.ndarray, max_new_tokens: int, *,
                  prefix_embeds=None,

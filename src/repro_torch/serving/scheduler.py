@@ -56,9 +56,8 @@ Robustness layer (all opt-in, zero-cost when off):
                  bit-exact with a fault-free run.
   * watchdog   — per-step wall-time budget (``watchdog_s``) counts
                  stalls into the pressure signal; transient step faults
-                 are retried with exponential backoff before the
-                 request is shed. (The fault-injection harness,
-                 ``faults=``, is not ported yet.)
+                 (serving/faults.py) are retried with exponential
+                 backoff before the request is shed.
   * invariants — ``check_invariants()`` validates the slot-state
                  machine, cur_len ↔ active-mask consistency, and
                  batch-mass accounting after every scheduler
@@ -87,6 +86,7 @@ from repro_torch.serving.errors import (REASON_CANCELLED, REASON_COMPLETED,
                                   InvariantViolation, QueueFull,
                                   TransientFault, WatchdogTimeout,
                                   validate_request)
+from repro_torch.serving.faults import FaultInjector
 from repro_torch.serving.sampler import sample_step
 from repro_torch.serving.step import (NO_FAULT, StepFns, build_step_fns,
                                       make_fused)
@@ -205,12 +205,10 @@ class Scheduler:
                  degrade_hi: float = 2.0,
                  degrade_lo: float = 0.5,
                  invariants: bool = False,
-                 faults=None,
+                 faults: Optional[FaultInjector] = None,
                  on_round: Optional[Callable] = None,
                  fused_cache: Optional[Dict[int, Callable]] = None,
                  device: DeviceLike = None):
-        if faults is not None:
-            raise NotImplementedError("fault injection is not ported yet")
         if admission not in ("fcfs", "affinity"):
             raise ValueError(f"unknown admission policy {admission!r}")
         if overload not in ("reject", "shed"):
@@ -233,6 +231,7 @@ class Scheduler:
         self.degrade_hi = degrade_hi
         self.degrade_lo = degrade_lo
         self.invariants = invariants
+        self.faults = faults
         self.on_round = on_round
         self._force_window = force_window
         self._capacity_factor = capacity_factor
@@ -447,6 +446,8 @@ class Scheduler:
         delay = self.retry_backoff_s
         for attempt in range(self.max_retries + 1):
             try:
+                if self.faults is not None and what == "insert":
+                    self.faults.before_insert(rid)
                 return call()
             except TransientFault as e:
                 self.retries += 1
@@ -464,6 +465,8 @@ class Scheduler:
         and run through the numerically identical computation the
         lockstep engine's batched prefill performs."""
         t_pre = time.perf_counter()   # watchdog window includes host stalls
+        if self.faults is not None:
+            self.faults.before_prefill([st.req.rid for st, _ in group])
         prompts = torch.as_tensor(np.stack([st.req.prompt for st, _ in group]),
                                   device=self.device)
         lg, req_cache, _ = self.fns.prefill(self.params, prompts)
@@ -589,13 +592,19 @@ class Scheduler:
         evicted with a scrubbed cache row; the co-batched slots'
         tokens are bit-exact with a fault-free round."""
         t_round = time.perf_counter()
+        if self.faults is not None:
+            self.faults.before_round(self._round_idx)
+            fault = self.faults.nan_fault(
+                self.total_steps, self.total_steps + self.fns.decode_chunk)
+        else:
+            fault = NO_FAULT
         remaining = torch.as_tensor(
             [st.req.max_new_tokens - len(st.tokens) if st else 0
              for st in self._slots], dtype=torch.int32, device=self.device)
         self._tok, self._cache, toks, aux, ok, poisoned = \
             self._fused_at(self.level)(
                 self.params, self._tok, self._cache, remaining, self._gen,
-                NO_FAULT)
+                fault)
         toks = toks.cpu().numpy()                  # sync point: (N, B)
         ok = ok.cpu().numpy()                      # (N, B)
         poisoned = poisoned.cpu().numpy()          # (B,)
@@ -635,6 +644,14 @@ class Scheduler:
                 self._finish(st, slot=slot, reason=REASON_DEADLINE_E2E)
         if self.on_round is not None:
             self.on_round(self, self._round_idx)
+
+    def release(self) -> None:
+        """Drop the device-side running-batch state (the KV / SSM cache
+        and the last tokens) of a scheduler that will not run again —
+        a crashed front door's, whose recovery builds a fresh one on the
+        same engine."""
+        self._cache = None
+        self._tok = None
 
     # -------------------------------------------------------- degradation --
 

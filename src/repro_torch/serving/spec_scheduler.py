@@ -215,6 +215,10 @@ class SpecScheduler(Scheduler):
             self._slot_spec[slot] = None
         super()._finish(st, slot, reason=reason, scrub=scrub)
 
+    def release(self) -> None:
+        super().release()
+        self._dcache = None
+
     # ----------------------------------------------------- expert priors --
 
     def gate_priors(self) -> np.ndarray:
@@ -249,13 +253,20 @@ class SpecScheduler(Scheduler):
     def _decode_round(self) -> None:
         """One dispatch of `num_rounds` draft-verify rounds + harvest.
         total_steps counts ROUNDS (each emits 1..spec_len+1 tokens per
-        live slot). Between dispatches the host adapts per-slot draft
-        lengths from the acceptance EMA, charges spec budgets, and folds
-        the verify pass's per-request gate histograms into the
-        correlation priors."""
+        live slot), so fault campaigns address rounds the way they
+        address steps on the plain path. Between dispatches the host
+        adapts per-slot draft lengths from the acceptance EMA, charges
+        spec budgets, and folds the verify pass's per-request gate
+        histograms into the correlation priors."""
         t_round = time.perf_counter()
         sc = self.spec_cfg
         R = self.spec_fns.num_rounds
+        if self.faults is not None:
+            self.faults.before_round(self._round_idx)
+            fault = self.faults.nan_fault(self.total_steps,
+                                          self.total_steps + R)
+        else:
+            fault = NO_FAULT
 
         def dev(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -273,7 +284,7 @@ class SpecScheduler(Scheduler):
                 self._dcache, dev(remaining, torch.int32),
                 dev(budget, torch.int32), dev(draft_len, torch.int32),
                 dev(spec_on, torch.bool),
-                dev(self.gate_priors(), torch.float32), NO_FAULT)
+                dev(self.gate_priors(), torch.float32), fault)
         new_tokens = new_tokens.cpu().numpy()      # sync: (R, B, Ls+1)
         num_new = num_new.cpu().numpy()            # (R, B)
         accepted = accepted.cpu().numpy()          # (R, B)

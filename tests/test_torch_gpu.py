@@ -191,9 +191,26 @@ def _attn_case(g, dev, dtype, B, H, Hkv, dh, S, lengths):
 
 
 def _span(B, S, Hkv, dh, dtype, dev):
-    from repro_torch.kernels.decode_attn import _sm_count, split_plan
-    return split_plan(B, S, Hkv, dh, torch.finfo(dtype).bits // 8,
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attn import (_sm_count, block_step,
+                                                 split_plan)
+    code = build.DTYPE_CODES[str(dtype).replace("torch.", "")]
+    return split_plan(B, S, Hkv, block_step(dh, code),
                       _sm_count(dev.index or 0))
+
+
+# positions per split-block step: 4 warps x 4 a lane x 32 / lanes a
+# warp load, a row's 16-byte chunks on a power of two of lanes (head dim
+# 80: 10 bf16 chunks on 16 lanes, 20 f32 chunks on 32)
+@pytest.mark.parametrize("dtype,steps", [
+    (torch.float32, {32: 64, 64: 32, 80: 16, 128: 16, 256: 16}),
+    (torch.bfloat16, {32: 128, 64: 64, 80: 32, 128: 32, 256: 16})])
+def test_decode_attention_block_step(cuda, dtype, steps):
+    from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attn import _HEAD_DIMS, block_step
+    code = build.DTYPE_CODES[str(dtype).replace("torch.", "")]
+    assert {dh: block_step(dh, code) for dh in _HEAD_DIMS} == steps
+    assert block_step(96, code) == 0
 
 
 # the kernel cuts S into spans, one block each: a length of 1, exactly
@@ -302,7 +319,7 @@ def _cached_check(dev, g, dtype, T, H, Hkv, dh, window):
     check(out, ref, dtype)
 
 
-@pytest.mark.parametrize("dh", [32, 64, 128, 256])
+@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("T", [1, 2, 5, 8])
 def test_decode_attention_cached_kernel(cuda, T, rep, dh):
@@ -363,6 +380,43 @@ def test_decode_attention_cached_one_query_equals_lengths_contract(cuda,
         cached = K.decode_attention_cached(q[:, None].contiguous(), k, v,
                                            lens - 1)
         assert torch.equal(one, cached[:, 0])
+
+
+# h2o-danube-1.8b's decode and verify shapes: head dim 80 (10 bf16
+# chunks padded to 16 lanes, 20 f32 chunks to 32), 32 / 8 heads, a
+# rolling window of 4096 in 4608 slots with cur_len past C (wrapped)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 5])
+def test_decode_attention_head_dim_80(cuda, dtype, T):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(80 + T)
+    C, window = 4608, 4096
+    cur = torch.randint(C, 3 * C, (4,), generator=g)
+    args = _cached_case(g, cuda, dtype, 4, T, 32, 8, 80, C, cur)
+    out = K.decode_attention_cached(*args, window=window)
+    check(out, K.decode_attention_cached_plain(*args, window=window), dtype)
+    for _ in range(3):
+        assert torch.equal(out, K.decode_attention_cached(*args,
+                                                          window=window)), \
+            "decode_attention must give the same bits call after call"
+
+
+def test_decode_attention_reads_a_bf16_cache_under_f32_queries(cuda):
+    """q is cast to the cache's dtype, as the reference does; the output
+    comes back in q's dtype. A float8 cache is refused on the card."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(12)
+    q, k, v, cur = _cached_case(g, cuda, torch.bfloat16, 3, 5, 8, 2, 64,
+                                96, [0, 37, 91])
+    want = K.decode_attention_cached(q, k, v, cur).float()
+    out = K.decode_attention_cached(q.float(), k, v, cur)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, want)
+    check(out, K.decode_attention_cached_plain(q.float(), k, v, cur),
+          torch.bfloat16)
+    f8 = k.to(torch.float8_e4m3fn)
+    with pytest.raises(ValueError, match="e4m3"):
+        K.decode_attention_cached(q, f8, f8, cur)
 
 
 def test_cached_attention_start_pos_raises_on_cuda(cuda):

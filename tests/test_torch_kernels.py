@@ -14,9 +14,11 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.kernels.ops import flash_decode, xshare_moe_ffn  # noqa: E402
+from repro.models import attention as JA  # noqa: E402
 from repro.models.dispatch import sorted_expert_ffn as j_sorted  # noqa: E402
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.models import model as TMD  # noqa: E402
 from repro_torch.models.dispatch import (dispatch_plan,  # noqa: E402
                                          sorted_expert_ffn)
 
@@ -145,6 +147,7 @@ def test_grouped_ffn_invalid_tiles_emit_zeros():
 @pytest.mark.parametrize("B,H,Hkv,dh,S,bs", [
     (2, 8, 2, 64, 256, 64), (3, 4, 4, 32, 100, 32),
     (1, 16, 2, 128, 1024, 256), (2, 4, 1, 64, 64, 16),
+    (2, 8, 2, 80, 200, 40),
 ])
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_decode_attention_plain_matches_jax_kernel(B, H, Hkv, dh, S, bs, dt):
@@ -193,7 +196,93 @@ def test_decode_attention_zero_length_gives_zeros_like_jax():
     close(out, ref, "f32")
 
 
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("window,wrap", [(None, False), (24, False),
+                                         (24, True)])
+def test_decode_attention_cached_plain_at_head_dim_80(T, window, wrap):
+    """h2o-danube's head dim (80, not a power of two) under the
+    cached_attention contract, one query and a verify block, full and
+    rolling-window caches (window 24 in 32 slots), wrapped past C: the
+    plain version against the JAX package's cached_attention and, for
+    one query over a full cache, its Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(80 + T + (window or 0) + wrap)
+    B, H, Hkv, dh = 3, 8, 2, 80
+    C = 48 if window is None else window + 8
+    q = rng.standard_normal((B, T, H, dh)).astype(np.float32)
+    ck = rng.standard_normal((B, C, Hkv, dh)).astype(np.float32)
+    cv = rng.standard_normal((B, C, Hkv, dh)).astype(np.float32)
+    cur = np.array([0, 13, C - T], np.int32)
+    if wrap:
+        cur = np.array([C - 2, 2 * C + 5, 3 * C - 1], np.int32)
+    ref = JA.cached_attention(jnp.asarray(q), jnp.asarray(ck),
+                              jnp.asarray(cv), jnp.asarray(cur),
+                              window=window)
+    out = K.decode_attention_cached(torch.tensor(q), torch.tensor(ck),
+                                    torch.tensor(cv), torch.tensor(cur),
+                                    window=window)
+    close(out, ref, "f32")
+    if T == 1 and window is None:
+        # query 0 at position cur sees slots [0, cur + 1)
+        ker = flash_decode(jnp.asarray(q[:, 0]), jnp.asarray(ck),
+                           jnp.asarray(cv), jnp.asarray(cur + 1),
+                           block_s=16)
+        close(out[:, 0], ker, "f32")
+
+
+@pytest.mark.parametrize("cache", ["bf16", "f8"])
+def test_cached_attention_reads_a_cache_of_another_dtype(cache):
+    """f32 queries over a bf16 cache, and over a float8_e4m3fn cache
+    (dequantized to bf16 per use), against the reference's
+    cached_attention on the same stored values: output in q's dtype,
+    within the bf16 tolerance."""
+    rng = np.random.default_rng(11)
+    B, T, H, Hkv, dh, C = 2, 3, 4, 2, 32, 40
+    tdt = {"bf16": torch.bfloat16, "f8": torch.float8_e4m3fn}[cache]
+    jdt = {"bf16": jnp.bfloat16, "f8": jnp.float8_e4m3fn}[cache]
+    q = rng.standard_normal((B, T, H, dh)).astype(np.float32)
+    # the stored values, exactly representable in the cache's dtype
+    ck, cv = (torch.tensor(rng.standard_normal((B, C, Hkv, dh)),
+                           dtype=torch.float32).to(tdt) for _ in range(2))
+    cur = np.array([5, C - T], np.int32)
+    ref = JA.cached_attention(
+        jnp.asarray(q), jnp.asarray(ck.float().numpy(), jdt),
+        jnp.asarray(cv.float().numpy(), jdt), jnp.asarray(cur))
+    out = K.decode_attention_cached(torch.tensor(q), ck, cv,
+                                    torch.tensor(cur))
+    assert out.dtype == torch.float32 and ref.dtype == jnp.float32
+    close(out, ref, "bf16")
+
+
+def test_one_byte_cache_is_refused_on_the_card():
+    """init_cache and prefill refuse a float8 cache for a CUDA device
+    before allocating anything (so no GPU is needed to see it); the CPU
+    makes one."""
+    from repro_torch.configs.registry import ARCHS
+    cfg = ARCHS["granite-moe-1b-a400m"].reduced(num_layers=1,
+                                                max_d_model=64,
+                                                max_vocab=64)
+    f8 = torch.float8_e4m3fn
+    with pytest.raises(ValueError, match="e4m3"):
+        TMD.init_cache(cfg, 2, 16, f8, device="cuda")
+
+    class CudaTokens:                   # where prefill reads the device
+        device = torch.device("cuda")
+    with pytest.raises(ValueError, match="e4m3"):
+        TMD.prefill(cfg, {}, CudaTokens(), cache_len=16, cache_dtype=f8)
+    cache = TMD.init_cache(cfg, 2, 16, f8, device="cpu")
+    assert cache["kv_k"].dtype == f8
+
+
 # ------------------------------------------------------------ wrappers ----
+
+def kernel_step(dh: int, itemsize: int) -> int:
+    """The split kernel's positions per block step (the library's
+    decode_attention_step, which needs the card): 4 warps x 4 positions
+    a lane x positions per warp load, a row's 16-byte chunks on a power
+    of two of lanes."""
+    chunks = dh * itemsize // 16
+    return 4 * 4 * (32 // min(32, 1 << (chunks - 1).bit_length()))
+
 
 @pytest.mark.parametrize("B,S,Hkv,dh,itemsize", [
     (8, 512, 8, 64, 2), (8, 1024, 32, 64, 2), (8, 512, 8, 64, 4),
@@ -206,11 +295,25 @@ def test_decode_attention_split_plan(B, S, Hkv, dh, itemsize):
     unless a span is already one step."""
     from repro_torch.kernels.decode_attn import split_plan
     sms = 132
-    n_split, span = split_plan(B, S, Hkv, dh, itemsize, sms)
-    step = 4 * 4 * (32 // min(32, dh * itemsize // 16))
+    step = kernel_step(dh, itemsize)
+    n_split, span = split_plan(B, S, Hkv, step, sms)
     assert span % step == 0
     assert (n_split - 1) * span < S <= n_split * span
     assert n_split * B * Hkv <= 16 * sms or span == step
+
+
+@pytest.mark.parametrize("itemsize,step", [(2, 32), (4, 16)])
+def test_decode_attention_split_plan_at_head_dim_80(itemsize, step):
+    """Head dim 80 pads a row's 16-byte chunks (10 in bf16, 20 in f32)
+    to 16 and 32 lanes, so a block walks 32 and 16 positions a step;
+    spans are whole steps and cover h2o-danube's 4096-position window
+    (+ T - 1) exactly once."""
+    from repro_torch.kernels.decode_attn import split_plan
+    assert kernel_step(80, itemsize) == step
+    for S in (4096, 4100):
+        n_split, span = split_plan(4, S, 8, step, 132)
+        assert span % step == 0
+        assert (n_split - 1) * span < S <= n_split * span
 
 
 # granite-moe's and zamba2-1.2b's decode shapes (bf16): about 4 blocks
@@ -218,7 +321,7 @@ def test_decode_attention_split_plan(B, S, Hkv, dh, itemsize):
 @pytest.mark.parametrize("B,S,Hkv", [(8, 512, 8), (8, 1024, 32)])
 def test_decode_attention_split_plan_fills_the_card(B, S, Hkv):
     from repro_torch.kernels.decode_attn import split_plan
-    n_split, _ = split_plan(B, S, Hkv, 64, 2, 132)
+    n_split, _ = split_plan(B, S, Hkv, kernel_step(64, 2), 132)
     assert n_split * B * Hkv >= 3.8 * 132
 
 

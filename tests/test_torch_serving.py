@@ -238,8 +238,8 @@ def test_sampling_is_seeded(moe):
 
 def test_unported_options_raise(moe):
     """Speculative decoding raises for an SSM target (a rejected draft
-    would need its state rolled back); prefix embeddings and fault
-    injection are not ported yet."""
+    would need its state rolled back); prefix embeddings are not ported
+    yet."""
     tcfg, tp = moe[1], moe[3]
     scfg = small(ARCHS, "mamba2-370m")
     sp = bridge.init_params(scfg, device="cpu")
@@ -248,8 +248,6 @@ def test_unported_options_raise(moe):
     eng = Engine(tcfg, tp, device="cpu")
     with pytest.raises(NotImplementedError):
         eng.generate(moe[4], 4, prefix_embeds=np.zeros((3, 2, 128)))
-    with pytest.raises(NotImplementedError):
-        eng.make_scheduler(num_slots=2, faults=object())
 
 
 def test_nan_quarantine_freezes_one_slot(moe):
