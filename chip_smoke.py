@@ -51,9 +51,13 @@ each prints its wall time):
                 rejected at least once): continuous == lockstep == plain
                 greedy on each device, CPU == GPU;
   4. main path  random weights from a seed, bf16, all layers, through
-                Engine.generate; continuous equals lockstep, and each
-                kernel of the path was launched in its continuous run
-                (counters set to 0 just before it, read just after):
+                Engine.generate, twice: cold (the decode loops captured
+                as CUDA graphs on the way, serving/graphs.py) and warm
+                (replays only), each with tokens/s; continuous (replayed
+                graphs) equals lockstep (eager), and each kernel of the
+                path was launched in each continuous run, the same
+                number of times in both (counters set to 0 just before
+                a run, read just after):
                 granite-moe-1b-a400m (24 layers), 8 requests of 128
                 prompt tokens, 32 new each, XShare policy off and batch;
                 mamba2-370m (48 layers) and zamba2-1.2b (38), 8
@@ -64,11 +68,21 @@ each prints its wall time):
                 4096), 4 requests of 4600 prompt tokens, 32 new, so its
                 rolling cache of 4608 wraps 8 tokens into decoding:
                 decode_attention once per layer per decode step;
+     graphs     granite-moe at full width, bf16: one decode chunk (8
+                steps) and one speculative dispatch (4 rounds, small
+                draft) captured over a prefilled state and replayed,
+                against the same functions run eagerly on clones of that
+                state: every output, tok and every cache tensor bit-equal,
+                launch counts equal; capture time per loop;
   5. profile    torch.profiler over a prefill and 8 decode steps of
                 granite-moe (8 x 128 tokens) and of mamba2-370m (8 x 500),
-                with ssd_scan's share of the mamba2 device time, and (CUDA
-                activity only) over one speculative dispatch of
-                granite-moe (4 rounds, small draft), per round;
+                eager and replayed (granite also replayed under the batch
+                policy): wall per step, device busy, idle share, kernels
+                per step, each port kernel's ms per call (summed and as a
+                call's span), with ssd_scan's share of the mamba2 device
+                time; and (CUDA activity only) over one speculative
+                dispatch of granite-moe (4 rounds, small draft), eager
+                and replayed, per round;
   6. bf16 check granite-moe's prefill logits (24 layers, 8 x 128) with
                 the grouped_ffn kernel, and mamba2-370m's (48 layers,
                 8 x 500) with the ssd_scan kernel, each also with the
@@ -99,7 +113,8 @@ each prints its wall time):
                 tokens (a quarantined one a prefix), no request lost,
                 replay fidelity 1.0, every rid finished in a whole
                 journal; the recovered incarnation launches all three
-                kernels and holds no second cache. Prints survival,
+                kernels, holds no second cache and captures nothing (it
+                borrows the crashed one's graph). Prints survival,
                 chaos / fault-free tokens/s, recovery wall time (to the
                 first fresh token), durable and replayed tokens.
 
@@ -1072,54 +1087,100 @@ def spec_profile(cfg, params, prompts, *, cache_len=512, spec_len=4,
                  rounds=4):
     """torch.profiler (CUDA activity only, so the host is slowed little)
     over one spec dispatch (4 rounds, small draft, policy off) after one
-    prefill of both models: host wall and device busy time per round,
-    kernels per round and each port kernel's device ms per round."""
+    prefill of both models, run eagerly (spec_steps_fused as it is) and
+    replayed from a captured graph (the serving path on the card): host
+    wall and device busy time per round, kernels per round and each port
+    kernel's device ms per round and per call. The replay's unprofiled
+    wall is the median of 5."""
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels as K
     from repro_torch.models.model import prefill
     from repro_torch.serving.sampler import greedy
-    from repro_torch.serving.step import spec_steps_fused
+    from repro_torch.serving.step import NO_FAULT
 
     dcfg, dparams = small_draft(cfg, torch.bfloat16)
     toks = torch.as_tensor(prompts, device=CUDA)
     B = toks.shape[0]
+    ops = spec_ops(B, cfg.moe.num_experts, spec_len)
+    lg, cache0, _ = prefill(cfg, params, toks, cache_len=cache_len,
+                            capacity_factor=8.0)
+    _, dcache0, _ = prefill(dcfg, dparams, toks, cache_len=cache_len,
+                            capacity_factor=8.0)
+    tok0 = greedy(lg)
+    loop, fused = spec_graph(cfg, params, dcfg, dparams, tok0.clone(),
+                             clone_tree(cache0), clone_tree(dcache0),
+                             spec_len=spec_len, rounds=rounds)
+    state = loop.tensors
 
-    def full(v, dtype=torch.int32):
-        return torch.full((B,), v, dtype=dtype, device=CUDA)
+    def from_prefill():
+        state["tok"].copy_(tok0)
+        for key, src in (("cache", cache0), ("dcache", dcache0)):
+            for k, v in src.items():
+                state[key][k].copy_(v)
 
-    lg, cache, _ = prefill(cfg, params, toks, cache_len=cache_len,
-                           capacity_factor=8.0)
-    _, dcache, _ = prefill(dcfg, dparams, toks, cache_len=cache_len,
-                           capacity_factor=8.0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        spec_steps_fused(cfg, params, dcfg, dparams, greedy(lg), cache,
-                         dcache, full(1000), full(2 ** 30), full(spec_len),
-                         full(True, torch.bool),
-                         torch.zeros((B, cfg.moe.num_experts), device=CUDA),
-                         num_rounds=rounds, spec_len=spec_len,
-                         capacity_factor=8.0)
+    def dispatch(name):
+        from_prefill()
+        if name == "replay":
+            return lambda: loop(**ops, fault=NO_FAULT)
+        t = state
+        return lambda: fused(params, dparams, t["tok"], t["cache"],
+                             t["dcache"], *(torch.as_tensor(ops[n],
+                                                            device=CUDA)
+                                            for n in SPEC_OPS), NO_FAULT)
+
+    out = {}
+    for name in ("eager", "replay"):
+        walls = []
+        for _ in range(5 if name == "replay" else 0):
+            go = dispatch(name)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        go = dispatch(name)
         torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3 / rounds
-    t0 = time.perf_counter()
-    kern = cuda_kernels(prof)
-    post_s = time.perf_counter() - t0
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / rounds
-    ours = port_kernels_ms(kern, rounds)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    res = dict(profiled_wall_ms_per_round=prof_ms,
-               profiler_postprocess_s=post_s,
-               device_busy_ms_per_round=busy if kern else "not measured",
-               device_idle_share=(1 - busy / prof_ms) if kern
-               else "not measured",
-               kernels_per_round=sum(e.count for e in kern) / rounds,
-               top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3
-                         / rounds, calls=e.count / rounds) for e in top],
-               port_kernels_ms_per_round=ours)
-    log(f"profile {cfg.name} spec dispatch (small draft, spec_len "
-        f"{spec_len}, {rounds} rounds): {json.dumps(res)}")
-    return res
+        K.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3 / rounds
+        launches = K.launch_counts()
+        t0 = time.perf_counter()
+        kern = cuda_kernels(prof)
+        post_s = time.perf_counter() - t0
+        busy = sum(e.self_device_time_total for e in kern) / 1e3 / rounds
+        ours = port_kernels_ms(kern, rounds)
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+        wall = float(np.median(walls)) * 1e3 / rounds if walls else prof_ms
+        res = dict(profiled_wall_ms_per_round=prof_ms,
+                   wall_ms_per_round=wall,
+                   profiler_postprocess_s=post_s,
+                   device_busy_ms_per_round=busy if kern else "not measured",
+                   device_idle_share=max(0.0, 1 - busy / wall) if kern
+                   else "not measured",
+                   device_idle_share_profiled=(1 - busy / prof_ms) if kern
+                   else "not measured",
+                   kernels_per_round=sum(e.count for e in kern) / rounds
+                   if kern else "not measured",
+                   top=[dict(name=e.key[:60],
+                             ms=e.self_device_time_total / 1e3 / rounds,
+                             calls=e.count / rounds) for e in top],
+                   port_kernels_ms_per_round=ours,
+                   port_kernel_ms_per_call=per_call_ms(ours, launches,
+                                                       rounds),
+                   port_call_span_ms=call_spans_ms(prof) if kern
+                   else "not measured",
+                   launches_per_round={k: v / rounds
+                                       for k, v in launches.items()})
+        if name == "replay":
+            res["capture_s"] = loop.capture_s
+        out[name] = res
+        log(f"profile {cfg.name} spec dispatch {name} (small draft, "
+            f"spec_len {spec_len}, {rounds} rounds): {json.dumps(res)}")
+    return out
 
 
 # ------------------------------------------------- bf16 model check ---
@@ -1199,27 +1260,37 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
         eng = Engine(cfg, params, policy=pol, cache_len=cache_len,
                      device=CUDA)
         lock, _ = eng.generate(prompts, new, lockstep=True)
-        torch.cuda.synchronize()
-        K.reset_launch_counts()
-        t0 = time.perf_counter()
-        cont, st = eng.generate(prompts, new)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = K.launch_counts()
-        log(f"main path {cfg.name} policy={pol.mode} launches: {counts}")
-        missing = [n for n in kernels if counts[n] <= 0]
-        if missing:
-            fail(f"main path {cfg.name} ({pol.mode}) never launched "
-                 f"{missing}")
-        wrong = {n: (counts[n], want)
-                 for n, want in (expect(eng) if expect else {}).items()
-                 if counts[n] != want}
-        if wrong:
-            fail(f"main path {cfg.name} ({pol.mode}): launches "
-                 f"(counted, expected) {wrong}")
-        if cont.shape != (requests, new) or not np.array_equal(cont, lock):
-            fail(f"main path {cfg.name} ({pol.mode}): continuous != "
-                 f"lockstep")
+        runs = []
+        for temp in ("cold", "warm"):   # cold: the loops' capture included
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            cont, st = eng.generate(prompts, new)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+            runs.append((cont, st, wall, counts))
+            log(f"main path {cfg.name} policy={pol.mode} {temp} launches: "
+                f"{counts}")
+            missing = [n for n in kernels if counts[n] <= 0]
+            if missing:
+                fail(f"main path {cfg.name} ({pol.mode}) never launched "
+                     f"{missing}")
+            wrong = {n: (counts[n], want)
+                     for n, want in (expect(eng) if expect else {}).items()
+                     if counts[n] != want}
+            if wrong:
+                fail(f"main path {cfg.name} ({pol.mode}): launches "
+                     f"(counted, expected) {wrong}")
+            if cont.shape != (requests, new) or \
+                    not np.array_equal(cont, lock):
+                fail(f"main path {cfg.name} ({pol.mode}, {temp}): "
+                     f"continuous (replayed graphs) != lockstep (eager)")
+        (cont, st, wall, counts), (_, wst, wall_warm, wcounts) = runs
+        if wcounts != counts or wst.capture_s != 0.0:
+            fail(f"main path {cfg.name} ({pol.mode}): the warm run "
+                 f"launched {wcounts} (cold {counts}) or captured again "
+                 f"({wst.capture_s} s)")
         if cont.min() < 0 or cont.max() >= cfg.vocab_size:
             fail(f"main path {cfg.name} ({pol.mode}): token out of "
                  f"vocabulary")
@@ -1231,6 +1302,8 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
                 not torch.isfinite(lg[:, :cfg.vocab_size]).all():
             fail(f"main path {cfg.name} ({pol.mode}): bad prefill logits")
         res = dict(tokens_per_s=requests * new / wall, wall_s=wall,
+                   tokens_per_s_warm=requests * new / wall_warm,
+                   wall_s_warm=wall_warm, capture_s=st.capture_s,
                    launches=counts, prompt_len=prompt_len, new_tokens=new,
                    requests=requests)
         msg = ""
@@ -1243,7 +1316,9 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
         tokens[pol.mode] = cont
         log(f"main path {cfg.name} policy={pol.mode}: continuous == "
             f"lockstep, {requests * new} tokens in {wall:.3f} s = "
-            f"{requests * new / wall:.1f} tokens/s{msg}")
+            f"{requests * new / wall:.1f} tokens/s cold (capture "
+            f"{st.capture_s:.3f} s), {wall_warm:.3f} s = "
+            f"{requests * new / wall_warm:.1f} tokens/s warm{msg}")
     return results, eng.params, prompts, tokens
 
 
@@ -1420,13 +1495,21 @@ def durability_phase(cfg, params, prompts, plain_tokens, *, new=32,
                 np.array_equal(stream_tokens(s), plain_tokens[b])
                 for b, s in enumerate(streams)):
             fail("durability (a): streams != Engine.generate's tokens")
+        gc.collect()    # earlier phases' engines, before the reading
         torch.cuda.synchronize()
         mem_a = torch.cuda.memory_allocated()
+        # the drained door handed its running batch (and its captured
+        # loop) back to the engine, which lends it to every door below
+        states = eng.loops.states()
         cache_bytes = sum(v.numel() * v.element_size()
-                          for v in door._sched._cache.values())
+                          for v in states[0].tensors["cache"].values())
+        capture_a = eng.loops.capture_s
+        if len(states) != 1 or door._sched._cache is not None:
+            fail(f"durability (a): {len(states)} running batches in the "
+                 f"engine, or the drained door kept its own")
         out["a"] = dict(tokens_per_s=n * new / wall_a, wall_s=wall_a,
                         snapshots=door.snapshots_written,
-                        memory_allocated=mem_a)
+                        memory_allocated=mem_a, capture_s=capture_a)
         del door, streams
         gc.collect()
 
@@ -1459,6 +1542,10 @@ def durability_phase(cfg, params, prompts, plain_tokens, *, new=32,
         if mem_b > mem_a + cache_bytes // 2:
             fail(f"durability (b): {mem_b} bytes allocated after recovery, "
                  f"{mem_a} after (a): a second cache ({cache_bytes}) lives")
+        if eng.loops.capture_s != capture_a or len(eng.loops.states()) != 1:
+            fail(f"durability (b): the crashed and recovered incarnations "
+                 f"captured {eng.loops.capture_s - capture_a} s more, "
+                 f"{len(eng.loops.states())} running batches")
         out["b"] = dict(res, recovery_wall_s=rec_s, durable_tokens=durable,
                         launches=counts, memory_allocated=mem_b,
                         memory_over_a=mem_b - mem_a, cache_bytes=cache_bytes)
@@ -1532,54 +1619,289 @@ def durability_phase(cfg, params, prompts, plain_tokens, *, new=32,
     return out
 
 
-# ------------------------------------------------------ profile phase ---
+# -------------------------------------------------------- graph phase ---
 
-def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
-    """Where a prefill's or a decode step's time goes, policy off: host
-    wall per call (no profiler), then torch.profiler over the same calls
-    for the device's busy time by kernel. Device numbers are "not
-    measured" if the profiler sees no CUDA kernels."""
-    from torch.profiler import ProfilerActivity, profile
+SPEC_OPS = ("remaining", "budget", "draft_len", "spec_on", "priors")
+# the port's kernels (csrc/*.cu) by name prefix -> their wrapper
+WRAPPER_OF = (("moe_", "moe_ffn"), ("decode_", "decode_attention"),
+              ("grouped_", "grouped_ffn"), ("chunk_", "ssd_scan"),
+              ("state_pass", "ssd_scan"))
 
+
+def clone_tree(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+def plain_graph(cfg, params, tok, cache, *, steps: int, policy=None):
+    """decode_steps_fused over ``steps`` steps (policy off unless given)
+    captured over (tok, cache) as the schedulers capture it
+    (serving/graphs.py), and the eager closure it captured."""
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving.graphs import LoopState
+    from repro_torch.serving.step import NO_FAULT, make_fused
+
+    fused = make_fused(cfg, decode_chunk=steps, policy=policy or OFF)
+    state = LoopState({"tok": tok, "cache": cache},
+                      torch.Generator(device=CUDA))
+
+    def run(t, g, i):
+        return fused(params, t["tok"], t["cache"], i["remaining"], g,
+                     i["fault"])
+    inputs = {"remaining": torch.zeros(tok.shape[0], dtype=torch.int32,
+                                       device=CUDA),
+              "fault": torch.tensor(NO_FAULT, dtype=torch.int32,
+                                    device=CUDA)}
+    return state.loop(0, lambda: (run, inputs)), fused
+
+
+def spec_ops(B: int, E: int, spec_len: int):
+    """Per-slot operands of a speculative dispatch: every slot drafts
+    spec_len tokens, nothing runs out."""
+    return dict(remaining=np.full(B, 1000, np.int32),
+                budget=np.full(B, 2 ** 30, np.int32),
+                draft_len=np.full(B, spec_len, np.int32),
+                spec_on=np.ones(B, bool),
+                priors=np.zeros((B, E), np.float32))
+
+
+def spec_graph(cfg, params, dcfg, dparams, tok, cache, dcache, *,
+               spec_len: int, rounds: int):
+    """spec_steps_fused (policy off) captured over (tok, cache, dcache),
+    and the eager closure it captured."""
+    from repro_torch.serving.graphs import LoopState
+    from repro_torch.serving.step import NO_FAULT, make_spec_fused
+
+    fused = make_spec_fused(cfg, dcfg, spec_len=spec_len, num_rounds=rounds)
+    state = LoopState({"tok": tok, "cache": cache, "dcache": dcache},
+                      torch.Generator(device=CUDA))
+
+    def run(t, g, i):
+        return fused(params, dparams, t["tok"], t["cache"], t["dcache"],
+                     *(i[n] for n in SPEC_OPS), i["fault"])
+    ops = spec_ops(tok.shape[0], cfg.moe.num_experts, spec_len)
+    inputs = {n: torch.zeros(ops[n].shape, dtype=torch.as_tensor(
+        ops[n]).dtype, device=CUDA) for n in SPEC_OPS}
+    inputs["fault"] = torch.tensor(NO_FAULT, dtype=torch.int32, device=CUDA)
+    return state.loop(0, lambda: (run, inputs)), fused
+
+
+def per_call_ms(ours, launches, per: int):
+    """Device ms per call of each wrapper, from its kernels' ms per step
+    (``port_kernels_ms``) and its launches in ``per`` steps."""
+    sums = {}
+    for name, ms in ours.items():
+        w = next((w for pre, w in WRAPPER_OF if name.startswith(pre)), None)
+        if w is not None:
+            sums[w] = sums.get(w, 0.0) + ms
+    return {w: ms * per / launches[w] for w, ms in sums.items()
+            if launches.get(w)}
+
+
+def _starts_call(name: str) -> bool:
+    """The first kernel of a wrapper's call (moe_ffn: up, down, reduce;
+    decode_attention: split, merge; grouped_ffn: up, down; ssd_scan:
+    chunk state, state pass, chunk scan)."""
+    return name.startswith(("moe_up", "decode_split", "chunk_state")) or \
+        (name.startswith("grouped_") and "true>" in name)
+
+
+def call_spans_ms(prof):
+    """Device ms of one call of each wrapper inside a profiled run: from
+    its first kernel's start to its last kernel's end (a call's kernels
+    run back to back, overlapping under PDL, so their durations' sum
+    overstates it), the mean over the run's calls; "not measured" when
+    the profiler gives no kernel timestamps."""
+    from torch.autograd import DeviceType
+    try:
+        kern = sorted(((e.name, e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda k: k[1])
+    except AttributeError:
+        return "not measured"
+    spans, cur = {}, None
+    for name, t0, t1 in kern + [("", 0.0, 0.0)]:
+        name = name.replace("(anonymous namespace)::", "").removeprefix(
+            "void ")
+        w = next((w for pre, w in WRAPPER_OF if name.startswith(pre)), None)
+        if cur is not None and (w != cur[0] or _starts_call(name)):
+            spans.setdefault(cur[0], []).append(cur[2] - cur[1])
+            cur = None
+        if w is not None:
+            cur = (w, t0, t1) if cur is None else (w, cur[1], max(cur[2], t1))
+    return {w: float(np.mean(v)) / 1e3 for w, v in spans.items()}
+
+
+def graph_phase(cfg, params, prompts, *, cache_len=512, steps=8,
+                spec_len=4, rounds=4):
+    """Replay == eager, exactly, at full width in bf16: one decode chunk
+    of ``steps`` steps and one speculative dispatch (small draft,
+    ``rounds`` rounds of spec_len drafts), each captured over a prefilled
+    state, replayed once and run eagerly on clones of that state: tokens,
+    ok / accepted / drafted, poisoned, aux, tok and every cache tensor
+    bit-equal, and each kernel's launch count the same. Prints each
+    loop's capture time (warm-up run included)."""
+    from repro_torch import kernels as K
     from repro_torch.models.model import prefill
     from repro_torch.serving.sampler import greedy
-    from repro_torch.serving.step import decode_steps_fused
+    from repro_torch.serving.step import NO_FAULT
 
     toks = torch.as_tensor(prompts, device=CUDA)
     B = toks.shape[0]
+
+    def compare(loop, out, ref, n_out, n_ref, state, eager, outputs, aux):
+        """Mismatches of a replay against the eager run: the named
+        outputs, aux, the state tensors, the launch counts."""
+        mism = [o for o, i in outputs if not torch.equal(out[i], ref[i])]
+        mism += [f"aux/{k}" for k in ref[aux]
+                 if not torch.equal(out[aux][k], ref[aux][k])]
+        for key, t in state.items():
+            if isinstance(t, dict):
+                mism += [f"{key}/{k}" for k, v in t.items()
+                         if not torch.equal(v, eager[key][k])]
+            elif not torch.equal(t, eager[key]):
+                mism.append(key)
+        if n_out != n_ref:
+            mism.append(f"launches {n_out} != {n_ref}")
+        return dict(capture_s=loop.capture_s, exact=not mism,
+                    mismatches=mism, launches_per_replay=loop.launches)
+
+    def run_both(loop, eager_call, ops):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        out = loop(**ops, fault=NO_FAULT)
+        torch.cuda.synchronize()
+        replayed = K.launch_counts()
+        K.reset_launch_counts()
+        ref = eager_call()
+        torch.cuda.synchronize()
+        return out, ref, replayed, K.launch_counts()
+
+    res = {}
+    lg, cache, _ = prefill(cfg, params, toks, cache_len=cache_len,
+                           capacity_factor=8.0)
+    tok = greedy(lg)
+    eager = {"tok": tok.clone(), "cache": clone_tree(cache)}
+    loop, fused = plain_graph(cfg, params, tok, cache, steps=steps)
+    rem = np.full(B, 1000, np.int32)
+    out, ref, n_out, n_ref = run_both(
+        loop, lambda: fused(params, eager["tok"], eager["cache"],
+                            torch.as_tensor(rem, device=CUDA), None,
+                            NO_FAULT), dict(remaining=rem))
+    r = compare(loop, out, ref, n_out, n_ref, {"tok": tok, "cache": cache},
+                eager, (("toks", 2), ("ok", 4), ("poisoned", 5)), 3)
+    r.update(steps=steps)
+    res["decode"] = r
+    del loop, out, ref, eager, cache
+
+    dcfg, dparams = small_draft(cfg, torch.bfloat16)
+    lg, cache, _ = prefill(cfg, params, toks, cache_len=cache_len,
+                           capacity_factor=8.0)
+    _, dcache, _ = prefill(dcfg, dparams, toks, cache_len=cache_len,
+                           capacity_factor=8.0)
+    tok = greedy(lg)
+    eager = {"tok": tok.clone(), "cache": clone_tree(cache),
+             "dcache": clone_tree(dcache)}
+    loop, fused = spec_graph(cfg, params, dcfg, dparams, tok, cache, dcache,
+                             spec_len=spec_len, rounds=rounds)
+    ops = spec_ops(B, cfg.moe.num_experts, spec_len)
+    out, ref, n_out, n_ref = run_both(
+        loop, lambda: fused(params, dparams, eager["tok"], eager["cache"],
+                            eager["dcache"],
+                            *(torch.as_tensor(ops[n], device=CUDA)
+                              for n in SPEC_OPS), NO_FAULT), ops)
+    r = compare(loop, out, ref, n_out, n_ref,
+                {"tok": tok, "cache": cache, "dcache": dcache}, eager,
+                (("remaining", 3), ("budget", 4), ("new_tokens", 5),
+                 ("num_new", 6), ("accepted", 7), ("drafted", 8),
+                 ("poisoned", 10)), 9)
+    r.update(rounds=rounds, spec_len=spec_len, accepted=int(ref[7].sum()),
+             drafted=int(ref[8].sum()))
+    res["spec"] = r
+    log(f"graphs {cfg.name} (bf16, {B} slots): {json.dumps(res)}")
+    bad = {k: v["mismatches"] for k, v in res.items() if not v["exact"]}
+    if bad:
+        fail(f"graphs {cfg.name}: replay != eager in {bad}")
+    return res
+
+
+# ------------------------------------------------------ profile phase ---
+
+def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8,
+                  batch=None):
+    """Where a prefill's or a decode step's time goes, policy off, for a
+    prefill, ``steps`` eager decode steps (decode_steps_fused run as it
+    is) and the same steps replayed from a captured graph (the serving
+    path on the card; with ``batch``, an XShare policy, also replayed
+    under it): host wall per call (no profiler; a replay's the median of
+    5), then torch.profiler over the same calls for the device's busy
+    time by kernel, and each port kernel's device ms per call, summed
+    over its kernels and as the span of a call. The idle share is taken
+    against the wall without the profiler (the step as served) and
+    against the profiled wall. Device numbers are "not measured" if the
+    profiler sees no CUDA kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.models.model import prefill
+    from repro_torch.serving.sampler import greedy
+    from repro_torch.serving.step import NO_FAULT, decode_steps_fused
+
+    toks = torch.as_tensor(prompts, device=CUDA)
+    B = toks.shape[0]
+    rem = np.full(B, 1000, np.int32)
 
     def prefilled():
         lg, cache, _ = prefill(cfg, params, toks, cache_len=cache_len,
                                capacity_factor=8.0)
         return greedy(lg), cache
 
-    def decode(tok, cache):
-        return decode_steps_fused(
-            cfg, params, tok, cache,
-            torch.full((B,), 1000, dtype=torch.int32, device=CUDA), None,
-            num_steps=steps, capacity_factor=8.0)
+    tok0, cache0 = prefilled()
+    loops = {"replay": plain_graph(cfg, params, tok0.clone(),
+                                   clone_tree(cache0), steps=steps)[0]}
+    if batch is not None:
+        loops["replay batch"] = plain_graph(
+            cfg, params, tok0.clone(), clone_tree(cache0), steps=steps,
+            policy=batch)[0]
+
+    def from_prefill(loop):
+        loop.tensors["tok"].copy_(tok0)
+        for k, v in cache0.items():
+            loop.tensors["cache"][k].copy_(v)
 
     out = {}
-    for name in ("prefill", "decode"):
+    for name in ("prefill", "decode", *loops):
         runs = []
         for use_prof in (False, True):
-            tok, cache = prefilled()
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) \
-                if use_prof else None
-            if prof is not None:
-                prof.__enter__()
-            t0 = time.perf_counter()
-            if name == "prefill":
-                prefilled()
-            else:
-                decode(tok, cache)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            if prof is not None:
-                prof.__exit__(None, None, None)
-            runs.append((wall, prof))
+            walls = []
+            for _ in range(5 if name in loops and not use_prof else 1):
+                if name == "decode":
+                    tok, cache = prefilled()
+                if name in loops:
+                    from_prefill(loops[name])
+                torch.cuda.synchronize()
+                prof = profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) \
+                    if use_prof else None
+                if prof is not None:
+                    prof.__enter__()
+                K.reset_launch_counts()
+                t0 = time.perf_counter()
+                if name == "prefill":
+                    prefilled()
+                elif name == "decode":
+                    decode_steps_fused(
+                        cfg, params, tok, cache,
+                        torch.as_tensor(rem, device=CUDA), None,
+                        num_steps=steps, capacity_factor=8.0)
+                else:
+                    loops[name](remaining=rem, fault=NO_FAULT)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                launches = K.launch_counts()
+                if prof is not None:
+                    prof.__exit__(None, None, None)
+            runs.append((float(np.median(walls)), prof))
         per = 1 if name == "prefill" else steps
         wall_ms = runs[0][0] * 1e3 / per
         kern = cuda_kernels(runs[1][1])
@@ -1588,15 +1910,25 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8):
                      if any(k in e.key for k in SSD_KERNELS)) / 1e3 / per
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
         ours = port_kernels_ms(kern, per)
+        prof_ms = runs[1][0] * 1e3 / per
         out[name] = dict(
-            wall_ms=wall_ms, profiled_wall_ms=runs[1][0] * 1e3 / per,
+            wall_ms=wall_ms, profiled_wall_ms=prof_ms,
             device_busy_ms=busy_ms if kern else "not measured",
-            device_idle_share=(1 - busy_ms / (runs[1][0] * 1e3 / per))
+            device_idle_share=max(0.0, 1 - busy_ms / wall_ms)
             if kern else "not measured",
-            kernels_per_call=sum(e.count for e in kern) / per,
+            device_idle_share_profiled=(1 - busy_ms / prof_ms)
+            if kern else "not measured",
+            kernels_per_call=sum(e.count for e in kern) / per
+            if kern else "not measured",
             top=[dict(name=e.key[:60], ms=e.self_device_time_total / 1e3
                       / per, calls=e.count / per) for e in top],
-            port_kernels_ms=ours)
+            port_kernels_ms=ours,
+            port_kernel_ms_per_call=per_call_ms(ours, launches, per),
+            port_call_span_ms=call_spans_ms(runs[1][1]) if kern
+            else "not measured",
+            launches_per_call={k: v / per for k, v in launches.items()})
+        if name in loops:
+            out[name]["capture_s"] = loops[name].capture_s
         if cfg.ssm is not None:
             out[name].update(ssd_scan_ms=ssd_ms if kern else "not measured",
                              ssd_scan_share_of_busy=ssd_ms / busy_ms
@@ -1657,8 +1989,17 @@ def main() -> int:
             cfg, kernels=("grouped_ffn", "moe_ffn", "decode_attention"),
             prompt_len=128, new=32, cache_len=512,
             policies=(OFF, XSharePolicy(mode="batch", k0=1, m_l=8)))
+    tps = {pol: {t: results[ARCH][pol][k] for t, k in
+                 (("cold", "tokens_per_s"), ("warm", "tokens_per_s_warm"))}
+           for pol in results[ARCH]}
+    log(f"tokens/s {ARCH} 8 x 32 new, one call, off vs batch (cold: the "
+        f"capture included): {json.dumps(tps)}; card {card}")
+    with Phase(f"graphs {ARCH}"), torch.no_grad():
+        graphs = graph_phase(cfg, params, prompts)
     with Phase(f"profile {ARCH}"), torch.no_grad():
-        prof[ARCH] = profile_phase(cfg, params, prompts, cache_len=512)
+        prof[ARCH] = profile_phase(cfg, params, prompts, cache_len=512,
+                                   batch=XSharePolicy(mode="batch", k0=1,
+                                                      m_l=8))
     bf16_check = {}
     with Phase(f"bf16 check {ARCH}"), torch.no_grad():
         from repro_torch.kernels import grouped_ffn_plain
@@ -1742,7 +2083,8 @@ def main() -> int:
     print(json.dumps({"kernels": line, "main_path": results,
                       "parity": parity, "spec_lossless": lossless,
                       "bf16_check": bf16_check, "profile": prof,
-                      "durability": durability, "card": card}),
+                      "graphs": graphs, "durability": durability,
+                      "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

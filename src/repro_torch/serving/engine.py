@@ -4,6 +4,8 @@
                         admission
   serving/step.py       the decode loop: sampling on the device, N tokens
                         per scheduler intervention, per-slot active masks
+  serving/graphs.py     the loops captured as CUDA graphs on the card,
+                        with the running batch they replay over
   serving/engine.py     this facade: ``generate()`` and GenStats
 
   serving/spec_scheduler.py  with a draft model (``draft=``,
@@ -18,8 +20,12 @@
 arriving at t=0, which under greedy sampling is token-exact with the
 retained per-token lockstep loop (``lockstep=True``); with a draft model
 the lockstep reference is the host-side draft / verify loop
-(``_generate_spec``), and both equal plain greedy decoding. Prefix
-embeddings are not ported yet and raise.
+(``_generate_spec``), and both equal plain greedy decoding. Both
+references stay eager on purpose: on the card the continuous paths
+replay captured graphs, so continuous == lockstep holds graph against
+eager. The engine's LoopPool keeps the running batches and their graphs
+across schedulers: a second ``generate`` (or a front door's recovery)
+captures nothing new. Prefix embeddings are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from repro_torch.models.model import (Model, decode_step, effective_window,
                                       params_to, prefill)
 from repro_torch.models.moe import OFF
 from repro_torch.serving.errors import validate_request
+from repro_torch.serving.graphs import LoopPool
 from repro_torch.serving.sampler import greedy, sample_step
 from repro_torch.serving.scheduler import Scheduler
 from repro_torch.serving.spec_decode import greedy_accept, rollback_cur_len
@@ -50,6 +57,7 @@ class GenStats:
     steps: int = 0
     new_tokens: int = 0
     wall_s: float = 0.0
+    capture_s: float = 0.0        # CUDA graph capture inside wall_s
     accepted_hist: List[float] = field(default_factory=list)
     layer_aux: List[Dict] = field(default_factory=list)
     # speculative-decoding counters
@@ -126,13 +134,12 @@ class Engine:
             decode_chunk=decode_chunk, temperature=temperature,
             force_window=force_window, capacity_factor=capacity_factor,
             dispatch=dispatch)
-        self._fused_levels = {}   # degradation-level decode loops
+        self.loops = LoopPool()   # running batches and captured loops
         self._schedulers = 0
         # the verify pass routes with Algorithm 4 or not at all
         self._spec_policy = policy if policy.mode in ("off", "spec") \
             else OFF
         self._spec_fns = None
-        self._spec_fused_levels = {}
         if self.draft and spec_len:
             self._spec_fns = build_spec_fns(
                 cfg, self.draft[0], policy=self._spec_policy,
@@ -190,8 +197,7 @@ class Engine:
             force_window=self.force_window,
             capacity_factor=self.capacity_factor, dispatch=self.dispatch,
             seed=self._seed + self._schedulers, fns=self._fns,
-            fused_cache=self._fused_levels, device=self.device,
-            **robustness)
+            loop_pool=self.loops, device=self.device, **robustness)
         if self._spec_fns is None:
             return Scheduler(self.cfg, self.params, **common)
         sc = spec_cfg or SpecConfig(
@@ -204,8 +210,7 @@ class Engine:
         common["policy"] = self._spec_policy
         return SpecScheduler(
             self.cfg, self.params, draft=self.draft, spec_cfg=sc,
-            spec_fns=spec_fns, spec_fused_cache=self._spec_fused_levels,
-            **common)
+            spec_fns=spec_fns, **common)
 
     def make_frontdoor(self, *, num_slots: int, **door_kw):
         """A started crash-tolerant streaming FrontDoor over this engine
@@ -245,10 +250,14 @@ class Engine:
         B = prompts.shape[0]
         stats = GenStats(prompt_len=prompts.shape[1])
         t0 = time.perf_counter()
+        capture0 = self.loops.capture_s
         sched = self.make_scheduler(num_slots=B, admission="fcfs")
-        for b in range(B):
-            sched.submit(prompts[b], max_new_tokens)
-        states = sched.run()
+        try:
+            for b in range(B):
+                sched.submit(prompts[b], max_new_tokens)
+            states = sched.run()
+        finally:
+            sched.release()
         toks = np.stack([np.stack(st.tokens[:max_new_tokens])
                          for st in states])
         # per-request accounting is trimmed to each request's horizon;
@@ -262,6 +271,7 @@ class Engine:
             stats.drafted = sched.total_drafted
             stats.accepted = sched.total_accepted
             stats.spec_budget_exhausted = sched.budget_exhausted_events
+        stats.capture_s = self.loops.capture_s - capture0
         stats.wall_s = time.perf_counter() - t0
         return toks, stats
 

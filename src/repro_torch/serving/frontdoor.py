@@ -48,11 +48,13 @@ Crash + recovery contract:
     package's random stream is not reproduced.
 
 On the card: the serving thread enters ``torch.no_grad()`` and the
-engine's CUDA device itself (both are per thread in PyTorch); a round's
+engine's CUDA device itself (both are per thread in PyTorch) and
+captures the scheduler's loops there (serving/graphs.py); a round's
 tokens reach the host once, in the scheduler's harvest, never one
-``.item()`` per token; and a crashed incarnation releases its device
-cache (``Scheduler.release``), so recoveries on one engine do not pile
-up caches.
+``.item()`` per token; and a drained or crashed incarnation hands its
+running batch back to the engine (``Scheduler.release``), so a recovery
+on the same engine borrows it, graphs included: recoveries neither pile
+up caches nor capture again.
 """
 from __future__ import annotations
 
@@ -376,14 +378,15 @@ class FrontDoor:
                 # a real SIGKILL loses the buffered tail; a torn write
                 # additionally leaves a partial record on disk
                 self.journal.abandon(torn_bytes=torn)
-            # the device state died with this incarnation: free it, so
-            # a recovery on the same engine does not hold two caches
+            # the running batch died with this incarnation: hand it back
+            # before any consumer learns of the crash and recovers
             self._sched.release()
             for _rid, stream in self._streams_items():
                 stream._abort(e)
         finally:
             with self._lock:
                 self._open = False
+            self._sched.release()        # drained: back to the engine
 
     def _tick(self) -> bool:
         """The pump: runs in the serving thread once per scheduler loop

@@ -1,5 +1,7 @@
 """Token sampling from model logits. Random draws take an explicit
-``torch.Generator`` (on the logits' device)."""
+``torch.Generator`` (on the logits' device) and never wait for the
+device, so a decode loop that samples can be captured as a CUDA
+graph."""
 from __future__ import annotations
 
 from typing import Optional
@@ -27,9 +29,11 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
         cutoff = torch.gather(sorted_l, -1, cutoff_idx)
         logits = torch.where(logits < cutoff, -1e30, logits)
     probs = torch.softmax(logits, dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    out = torch.multinomial(flat, 1, generator=generator)[:, 0]
-    return out.reshape(probs.shape[:-1]).to(torch.int32)
+    # torch.multinomial's own one-sample draw, argmax(p / q) with
+    # q ~ Exp(1) from the generator, without its validity check, which
+    # reads the probabilities back to the host (p is a softmax here)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)
 
 
 def sample_step(logits: torch.Tensor, generator: Optional[torch.Generator],

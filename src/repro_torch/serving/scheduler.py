@@ -13,8 +13,9 @@ Request lifecycle:  waiting -> prefill -> decode -> done | shed.
                token is sampled from the prefill logits, and the row is
                spliced into the running batch cache (insert_request).
   * decode   — the slot participates in N-token decode loops
-               (serving/step.py); the scheduler harvests tokens between
-               loops.
+               (serving/step.py; on the card, replays of a captured
+               CUDA graph, serving/graphs.py); the scheduler harvests
+               tokens between loops.
   * done     — reached max_new_tokens; the slot is evicted and refilled
                from the queue.
   * shed     — any non-success terminal state (cancelled, deadline
@@ -87,6 +88,7 @@ from repro_torch.serving.errors import (REASON_CANCELLED, REASON_COMPLETED,
                                   TransientFault, WatchdogTimeout,
                                   validate_request)
 from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.graphs import GraphLoop, LoopPool, LoopState
 from repro_torch.serving.sampler import sample_step
 from repro_torch.serving.step import (NO_FAULT, StepFns, build_step_fns,
                                       make_fused)
@@ -176,11 +178,16 @@ class RequestState:
 class Scheduler:
     """Continuous-batching scheduler over a fixed-size slot array.
 
-    Drives the compiled StepFns bundle: per-request prefill + cache
-    insert on admission, N-token decode loops over the running
-    batch, eviction + re-admission as requests finish. The robustness
-    knobs (see module docstring) all default off, leaving the healthy
-    path bit-identical to the plain scheduler.
+    Drives the StepFns bundle: per-request prefill + cache insert on
+    admission, N-token decode loops over the running batch, eviction +
+    re-admission as requests finish. The robustness knobs (see module
+    docstring) all default off, leaving the healthy path bit-identical
+    to the plain scheduler.
+
+    The running batch (``tok``, the cache, the generator) is a
+    LoopState borrowed from ``loop_pool`` (an engine's, so its captured
+    loops serve the next scheduler too; by default one of its own) and
+    written in place; ``release()`` hands it back.
     """
 
     def __init__(self, cfg: ArchConfig, params, *,
@@ -207,7 +214,7 @@ class Scheduler:
                  invariants: bool = False,
                  faults: Optional[FaultInjector] = None,
                  on_round: Optional[Callable] = None,
-                 fused_cache: Optional[Dict[int, Callable]] = None,
+                 loop_pool: Optional[LoopPool] = None,
                  device: DeviceLike = None):
         if admission not in ("fcfs", "affinity"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -242,21 +249,18 @@ class Scheduler:
             decode_chunk=decode_chunk, temperature=temperature,
             force_window=force_window, capacity_factor=capacity_factor,
             dispatch=dispatch)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
         self._next_rid = 0
         self._incoming: List[RequestState] = []   # not yet arrived
         self._queue: List[RequestState] = []      # arrived, waiting
         self._slots: List[Optional[RequestState]] = [None] * num_slots
         self._states: List[RequestState] = []     # submission order
         self._by_rid: Dict[int, RequestState] = {}
-        # device-side running-batch state
-        dtype = self.params["embed"].dtype
-        self._cache = init_cache(cfg, num_slots, cache_len, dtype,
-                                 force_window=force_window,
-                                 device=self.device)
-        self._tok = torch.zeros((num_slots,), dtype=torch.int32,
-                                device=self.device)
+        # device-side running-batch state, borrowed from the pool
+        self._pool = loop_pool if loop_pool is not None else LoopPool()
+        self._state: Optional[LoopState] = self._pool.acquire(
+            self._state_key(), self, self._new_state)
+        self._gen = self._state.gen
+        self._gen.manual_seed(seed)
         self._active = np.zeros(num_slots, bool)
         # host-side aggregated gate mass of the running batch (affinity)
         E = cfg.moe.num_experts if cfg.moe else 0
@@ -273,12 +277,30 @@ class Scheduler:
         self._stalls_acked = 0
         self._round_idx = 0
         self._otps_ema: Optional[float] = None
-        # degradation-level decode loops; an engine-shared dict
-        # (fused_cache) lets every scheduler of one engine reuse the
-        # tightened-policy compiles instead of paying them per serve
-        self._fused_levels: Dict[int, Callable] = \
-            fused_cache if fused_cache is not None else {}
-        self._fused_levels.setdefault(0, self.fns.fused)
+
+    # ------------------------------------------------------ batch state --
+
+    def _state_key(self) -> tuple:
+        return ("plain", self.num_slots, self.cache_len,
+                self.params["embed"].dtype, self.fns.decode_chunk)
+
+    def _new_state(self) -> LoopState:
+        dtype = self.params["embed"].dtype
+        return LoopState(
+            {"tok": torch.zeros((self.num_slots,), dtype=torch.int32,
+                                device=self.device),
+             "cache": init_cache(self.cfg, self.num_slots, self.cache_len,
+                                 dtype, force_window=self._force_window,
+                                 device=self.device)},
+            torch.Generator(device=self.device))
+
+    @property
+    def _cache(self) -> Optional[Dict]:
+        return None if self._state is None else self._state.tensors["cache"]
+
+    @property
+    def _tok(self) -> Optional[torch.Tensor]:
+        return None if self._state is None else self._state.tensors["tok"]
 
     def _resolve_spec(self, spec: Optional[bool]) -> bool:
         """Plain scheduler: speculative requests are not supported —
@@ -481,10 +503,11 @@ class Scheduler:
                 and not self._active.any()
                 and all(st.req.max_new_tokens > 1 for st, _ in group)):
             # whole-batch admission into an empty machine (the all-at-t=0
-            # case): the group prefill cache IS the running cache — skip
-            # the per-slot insert dispatches entirely
-            self._cache = req_cache
-            self._tok = toks0
+            # case): the group prefill cache becomes the running cache in
+            # one copy per tensor, no per-slot insert dispatches
+            for k, v in self._cache.items():
+                v.copy_(req_cache[k])
+            self._tok.copy_(toks0)
             for i, (st, slot) in enumerate(group):
                 self._set_status(st, PREFILL)
                 self._set_status(st, DECODE)
@@ -504,7 +527,7 @@ class Scheduler:
                 self._finish(st, slot=None)
                 continue
             try:
-                self._cache = self._retry(
+                self._retry(
                     "insert", st.req.rid,
                     lambda: self.fns.insert(self._cache, req_cache, slot, i))
             except WatchdogTimeout:
@@ -528,7 +551,7 @@ class Scheduler:
             st.mass_counted = False
         if slot is not None:
             evict = self.fns.evict_scrub if scrub else self.fns.evict
-            self._cache = evict(self._cache, slot)
+            evict(self._cache, slot)
             self._slots[slot] = None
             self._active[slot] = False
             st.slot = -1
@@ -567,21 +590,36 @@ class Scheduler:
 
     # ------------------------------------------------------------ decode --
 
-    def _fused_at(self, level: int) -> Callable:
-        """The decode loop for a degradation level — level 0 is the
-        configured bundle; higher levels lazily build a variant with
-        a tightened XShare policy (everything else identical)."""
-        if level == 0 or self.cfg.moe is None:
-            return self.fns.fused
-        if level not in self._fused_levels:
-            pol = tighten_policy(self.policy, level, self.cfg.moe)
-            self._fused_levels[level] = make_fused(
-                self.cfg, policy=pol, decode_chunk=self.fns.decode_chunk,
+    def _loop_at(self, level: int) -> GraphLoop:
+        """The decode loop for a degradation level over the borrowed
+        state — level 0 runs the configured bundle, higher levels a
+        variant with a tightened XShare policy (everything else
+        identical); each is built, and on the card captured, at its
+        first use."""
+        level = level if self.cfg.moe is not None else 0
+        return self._state.loop(level, lambda: self._make_loop(level))
+
+    def _make_loop(self, level: int):
+        fused = self.fns.fused
+        if level:
+            fused = make_fused(
+                self.cfg, policy=tighten_policy(self.policy, level,
+                                                self.cfg.moe),
+                decode_chunk=self.fns.decode_chunk,
                 temperature=self.temperature,
                 force_window=self._force_window,
                 capacity_factor=self._capacity_factor,
                 dispatch=self._dispatch)
-        return self._fused_levels[level]
+        params = self.params
+
+        def run(t, gen, i):
+            return fused(params, t["tok"], t["cache"], i["remaining"], gen,
+                         i["fault"])
+        return run, {
+            "remaining": torch.zeros((self.num_slots,), dtype=torch.int32,
+                                     device=self.device),
+            "fault": torch.tensor(NO_FAULT, dtype=torch.int32,
+                                  device=self.device)}
 
     def _decode_round(self) -> None:
         """One N-token decode loop + harvest. Slots carry their remaining
@@ -598,13 +636,11 @@ class Scheduler:
                 self.total_steps, self.total_steps + self.fns.decode_chunk)
         else:
             fault = NO_FAULT
-        remaining = torch.as_tensor(
+        remaining = np.asarray(
             [st.req.max_new_tokens - len(st.tokens) if st else 0
-             for st in self._slots], dtype=torch.int32, device=self.device)
-        self._tok, self._cache, toks, aux, ok, poisoned = \
-            self._fused_at(self.level)(
-                self.params, self._tok, self._cache, remaining, self._gen,
-                fault)
+             for st in self._slots], np.int32)
+        _, _, toks, aux, ok, poisoned = self._loop_at(self.level)(
+            remaining=remaining, fault=fault)
         toks = toks.cpu().numpy()                  # sync point: (N, B)
         ok = ok.cpu().numpy()                      # (N, B)
         poisoned = poisoned.cpu().numpy()          # (B,)
@@ -646,12 +682,14 @@ class Scheduler:
             self.on_round(self, self._round_idx)
 
     def release(self) -> None:
-        """Drop the device-side running-batch state (the KV / SSM cache
-        and the last tokens) of a scheduler that will not run again —
-        a crashed front door's, whose recovery builds a fresh one on the
-        same engine."""
-        self._cache = None
-        self._tok = None
+        """Hand the running-batch state (the KV / SSM cache, the last
+        tokens, the generator and its captured loops) back to the pool,
+        for a scheduler that will not run again: a finished
+        ``Engine.generate``'s, a drained or crashed front door's, whose
+        recovery on the same engine then borrows it."""
+        if self._state is not None:
+            self._pool.release(self._state)
+            self._state = None
 
     # -------------------------------------------------------- degradation --
 

@@ -9,12 +9,13 @@ existing lifecycle (waiting -> prefill -> decode -> done | shed):
                  prefill; its draft cache row is spliced next to the
                  target row and both advance in step thereafter (draft
                  cur_len == target cur_len is an invariant).
-  * decode     — rounds go through serving/step.py spec_steps_fused:
-                 an inner draft loop plus a single verify pass over
-                 (B, 1+L_s) tokens, ragged acceptance via greedy_accept
-                 and per-slot rollback. Plain requests ride the same
-                 loop with a zero draft limit (their round is exactly
-                 plain greedy decode).
+  * decode     — rounds go through serving/step.py spec_steps_fused
+                 (on the card, replays of a captured CUDA graph,
+                 serving/graphs.py): an inner draft loop plus a single
+                 verify pass over (B, 1+L_s) tokens, ragged acceptance
+                 via greedy_accept and per-slot rollback. Plain
+                 requests ride the same loop with a zero draft limit
+                 (their round is exactly plain greedy decode).
   * finish     — eviction (completion, cancel, deadline, numerics
                  quarantine) evicts BOTH cache rows; poisoned slots
                  scrub both.
@@ -43,15 +44,17 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 from repro_torch.models.model import init_cache, params_to
 from repro_torch.serving.errors import (REASON_COMPLETED, REASON_DEADLINE_E2E,
                                         REASON_NUMERICS, InvariantViolation)
+from repro_torch.serving.graphs import LoopState
 from repro_torch.serving.scheduler import (DECODE, RequestState, Scheduler,
                                            tighten_policy)
 from repro_torch.serving.step import (NO_FAULT, SpecStepFns, build_spec_fns,
@@ -128,17 +131,18 @@ class SpecScheduler(Scheduler):
                  draft: Tuple[ArchConfig, dict],
                  spec_cfg: SpecConfig,
                  spec_fns: Optional[SpecStepFns] = None,
-                 spec_fused_cache: Optional[Dict[int, Callable]] = None,
                  **sched_kw):
         check_spec_pair(cfg, draft[0])
+        # read by _state_key / _new_state in the base constructor
+        self.dcfg = draft[0]
+        self.dparams = params_to(draft[1],
+                                 resolve_device(sched_kw.get("device")))
+        self.spec_cfg = spec_cfg
         super().__init__(cfg, params, **sched_kw)
         if self.temperature != 0.0:
             raise ValueError(
                 "SpecScheduler is greedy-only (temperature == 0): "
                 "speculative acceptance is exact under argmax")
-        self.dcfg = draft[0]
-        self.dparams = params_to(draft[1], self.device)
-        self.spec_cfg = spec_cfg
         if self.policy.mode not in ("off", "spec"):
             raise ValueError(
                 f"SpecScheduler verify policy must be mode 'off' or "
@@ -149,13 +153,7 @@ class SpecScheduler(Scheduler):
             spec_len=spec_cfg.spec_len, num_rounds=spec_cfg.num_rounds,
             cache_len=self.cache_len, force_window=self._force_window,
             capacity_factor=self._capacity_factor, dispatch=self._dispatch)
-        self._dcache = init_cache(self.dcfg, self.num_slots, self.cache_len,
-                                  self.dparams["embed"].dtype,
-                                  device=self.device)
         self._slot_spec: List[Optional[_SlotSpec]] = [None] * self.num_slots
-        self._spec_fused_levels: Dict[int, Callable] = \
-            spec_fused_cache if spec_fused_cache is not None else {}
-        self._spec_fused_levels.setdefault(0, self.spec_fns.fused)
         # aggregate counters (mirrored per request on RequestState)
         self.total_drafted = 0
         self.total_accepted = 0
@@ -163,6 +161,25 @@ class SpecScheduler(Scheduler):
         # per-round mean accepted drafts over slots that drafted — the
         # continuous-path analogue of GenStats.accepted_hist
         self.round_accept_hist: List[float] = []
+
+    # ------------------------------------------------------ batch state --
+
+    def _state_key(self) -> tuple:
+        return ("spec", self.num_slots, self.cache_len,
+                self.params["embed"].dtype, self.spec_cfg.spec_len,
+                self.spec_cfg.num_rounds)
+
+    def _new_state(self) -> LoopState:
+        state = super()._new_state()
+        state.tensors["dcache"] = init_cache(
+            self.dcfg, self.num_slots, self.cache_len,
+            self.dparams["embed"].dtype, device=self.device)
+        return state
+
+    @property
+    def _dcache(self):
+        return None if self._state is None else \
+            self._state.tensors["dcache"]
 
     # ------------------------------------------------------- submission --
 
@@ -191,7 +208,7 @@ class SpecScheduler(Scheduler):
             device=self.device)
         _, dreq_cache, _ = self.spec_fns.dprefill(self.dparams, prompts)
         for i, (st, slot) in enumerate(spec_members):
-            self._dcache = self.fns.insert(self._dcache, dreq_cache, slot, i)
+            self.fns.insert(self._dcache, dreq_cache, slot, i)
             prior = None
             if st.gate_hist is not None:
                 prior = np.asarray(st.gate_hist, np.float64).copy()
@@ -211,13 +228,9 @@ class SpecScheduler(Scheduler):
                 reason: str = REASON_COMPLETED, scrub: bool = False) -> None:
         if slot is not None and self._slot_spec[slot] is not None:
             evict = self.fns.evict_scrub if scrub else self.fns.evict
-            self._dcache = evict(self._dcache, slot)
+            evict(self._dcache, slot)
             self._slot_spec[slot] = None
         super()._finish(st, slot, reason=reason, scrub=scrub)
-
-    def release(self) -> None:
-        super().release()
-        self._dcache = None
 
     # ----------------------------------------------------- expert priors --
 
@@ -236,19 +249,33 @@ class SpecScheduler(Scheduler):
 
     # ------------------------------------------------------------ decode --
 
-    def _spec_fused_at(self, level: int) -> Callable:
-        if level == 0 or self.cfg.moe is None:
-            return self.spec_fns.fused
-        if level not in self._spec_fused_levels:
-            pol = tighten_policy(self.policy, level, self.cfg.moe)
-            self._spec_fused_levels[level] = make_spec_fused(
-                self.cfg, self.dcfg, policy=pol,
+    def _make_loop(self, level: int):
+        fused = self.spec_fns.fused
+        if level:
+            fused = make_spec_fused(
+                self.cfg, self.dcfg,
+                policy=tighten_policy(self.policy, level, self.cfg.moe),
                 spec_len=self.spec_fns.spec_len,
                 num_rounds=self.spec_fns.num_rounds,
                 force_window=self._force_window,
                 capacity_factor=self._capacity_factor,
                 dispatch=self._dispatch)
-        return self._spec_fused_levels[level]
+        params, dparams = self.params, self.dparams
+        B, dev = self.num_slots, self.device
+        E = self.cfg.moe.num_experts if self.cfg.moe else 0
+
+        def run(t, gen, i):
+            return fused(params, dparams, t["tok"], t["cache"], t["dcache"],
+                         i["remaining"], i["budget"], i["draft_len"],
+                         i["spec_on"], i["priors"], i["fault"])
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        return run, {
+            "remaining": zeros(B), "budget": zeros(B), "draft_len": zeros(B),
+            "spec_on": zeros(B, dtype=torch.bool),
+            "priors": zeros(B, E, dtype=torch.float32),
+            "fault": torch.tensor(NO_FAULT, dtype=torch.int32, device=dev)}
 
     def _decode_round(self) -> None:
         """One dispatch of `num_rounds` draft-verify rounds + harvest.
@@ -268,23 +295,19 @@ class SpecScheduler(Scheduler):
         else:
             fault = NO_FAULT
 
-        def dev(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype,
-                                   device=self.device)
         remaining = [st.req.max_new_tokens - len(st.tokens) if st else 0
                      for st in self._slots]
         spec_on = [sp is not None for sp in self._slot_spec]
         draft_len = [sp.draft_len if sp else 0 for sp in self._slot_spec]
         budget = [min(sp.budget_left, _NO_BUDGET) if sp else 0
                   for sp in self._slot_spec]
-        (self._tok, self._cache, self._dcache, _, _,
-         new_tokens, num_new, accepted, drafted, aux, poisoned) = \
-            self._spec_fused_at(self.level)(
-                self.params, self.dparams, self._tok, self._cache,
-                self._dcache, dev(remaining, torch.int32),
-                dev(budget, torch.int32), dev(draft_len, torch.int32),
-                dev(spec_on, torch.bool),
-                dev(self.gate_priors(), torch.float32), fault)
+        (_, _, _, _, _, new_tokens, num_new, accepted, drafted, aux,
+         poisoned) = self._loop_at(self.level)(
+            remaining=np.asarray(remaining, np.int32),
+            budget=np.asarray(budget, np.int32),
+            draft_len=np.asarray(draft_len, np.int32),
+            spec_on=np.asarray(spec_on, bool),
+            priors=self.gate_priors().astype(np.float32), fault=fault)
         new_tokens = new_tokens.cpu().numpy()      # sync: (R, B, Ls+1)
         num_new = num_new.cpu().numpy()            # (R, B)
         accepted = accepted.cpu().numpy()          # (R, B)

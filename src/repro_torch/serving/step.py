@@ -1,10 +1,15 @@
-"""The decode loop of the continuous-batching scheduler.
+"""The decode loops of the continuous-batching schedulers.
 
 ``decode_steps_fused`` advances the running batch N tokens between
-scheduler interventions, with sampling on the device, so the host reads
-results once per N tokens (the JAX package runs the same loop as one
-jitted lax.scan; here it is a Python loop of eager steps, and nothing in
-it waits for the device).
+scheduler interventions, and ``spec_steps_fused`` runs N draft-then-
+verify rounds, both with sampling on the device, so the host reads
+results once per dispatch. Nothing in either loop waits for the device:
+the NaN-fault operand is a device tensor compared with the step index
+on the device, and the running state (``tok``, the caches' ``cur_len``,
+the KV, conv and SSM tensors) is written in place. So the loops can be
+captured whole as CUDA graphs (serving/graphs.py), the port's
+counterpart of the JAX package's jitted lax.scan; on the CPU they run
+as they are.
 
 Per-slot active masks keep the fixed-size batch safe: finished or empty
 slots are left out of MoE routing, their cur_len does not advance and
@@ -16,7 +21,7 @@ the identity.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Union
 
 import torch
 
@@ -31,6 +36,28 @@ from repro_torch.serving.spec_decode import greedy_accept
 
 NO_FAULT = (-1, -1)   # disabled (slot, step or round) NaN-injection operand
 
+Fault = Union[torch.Tensor, Sequence[int]]
+
+
+def _fault_operand(fault: Fault, device) -> torch.Tensor:
+    """The (2,) int32 (slot, step or round) NaN-fault operand on
+    ``device``; a tensor already there is used as it is (a captured
+    loop's static buffer), a pair of ints is copied over."""
+    if isinstance(fault, torch.Tensor) and fault.device == device:
+        return fault
+    return torch.as_tensor(fault, dtype=torch.int32, device=device)
+
+
+def _inject(x: torch.Tensor, fault: torch.Tensor,
+            index: int) -> torch.Tensor:
+    """x (B, ...) with row fault[0] set to NaN when index == fault[1],
+    compared on the device as the JAX package does."""
+    B = x.shape[0]
+    hit = (torch.arange(B, device=x.device) == fault[0]) & \
+        (fault[1] == index)
+    return torch.where(hit.reshape((B,) + (1,) * (x.ndim - 1)),
+                       float("nan"), x)
+
 
 def decode_steps_fused(cfg: ArchConfig, params, tok: torch.Tensor,
                        cache: dict, remaining: torch.Tensor,
@@ -41,42 +68,41 @@ def decode_steps_fused(cfg: ArchConfig, params, tok: torch.Tensor,
                        force_window: Optional[int] = None,
                        capacity_factor: float = 8.0,
                        dispatch: str = "auto",
-                       fault: Tuple[int, int] = NO_FAULT):
+                       fault: Fault = NO_FAULT):
     """Run ``num_steps`` decode + sample steps.
 
     tok: (B,) each slot's last emitted token; remaining: (B,) tokens each
     slot still owes (0 = empty slot). The active mask is
     ``remaining > 0`` and is updated every step, so a slot that reaches
     its budget mid-chunk drops out of routing on the next step.
-    fault: (slot, step) whose logits are poisoned with NaN — the fault
-    harness's hook; (-1, -1) disables it.
+    fault: (2,) int32 (slot, step) whose logits are poisoned with NaN —
+    the fault harness's hook; (-1, -1) disables it (a pair of ints is
+    accepted too).
 
-    Returns (tok', cache', toks (num_steps, B), aux (num_steps, L) per
+    ``tok`` and ``cache`` (its ``cur_len`` too) are updated in place.
+    Returns (tok, cache, toks (num_steps, B), aux (num_steps, L) per
     key, ok (num_steps, B) bool, poisoned (B,) bool): ``ok[i, b]`` marks
     a real token (slot active and finite at step i)."""
     B = tok.shape[0]
-    f_slot, f_step = int(fault[0]), int(fault[1])
+    fault = _fault_operand(fault, tok.device)
     poisoned = torch.zeros((B,), dtype=torch.bool, device=tok.device)
     toks, oks, auxs = [], [], []
     for step_i in range(num_steps):
         active = (remaining > 0) & ~poisoned
         cur0 = cache["cur_len"]
-        lg, cache, aux = decode_step(
+        lg, _, aux = decode_step(
             cfg, params, tok[:, None], cache, policy=policy,
             force_window=force_window, capacity_factor=capacity_factor,
             active=active, dispatch=dispatch)
-        last = lg[:, -1]                                   # (B, V)
-        if step_i == f_step and 0 <= f_slot < B:
-            last = last.clone()
-            last[f_slot] = float("nan")
+        last = _inject(lg[:, -1], fault, step_i)           # (B, V)
         finite = torch.isfinite(last).reshape(B, -1).all(dim=1)
         ok = active & finite
         poisoned = poisoned | (active & ~finite)
         nxt = sample_step(last, generator, temperature=temperature)
         nxt = torch.where(ok, nxt, tok)
-        cache["cur_len"] = torch.where(ok, cur0 + 1, cur0)
+        cur0.copy_(torch.where(ok, cur0 + 1, cur0))
         remaining = remaining - ok.to(remaining.dtype)
-        tok = nxt
+        tok.copy_(nxt)
         toks.append(nxt)
         oks.append(ok)
         auxs.append(aux)
@@ -100,7 +126,7 @@ class StepFns:
     """Serving functions shared by Engine and Scheduler."""
     prefill: Callable        # (params, tokens)            -> (lg, cache, aux)
     fused: Callable          # (params, tok, cache, remaining, gen, fault)
-    #                        -> (tok', cache', toks, aux, ok, poisoned)
+    #                        -> (tok, cache, toks, aux, ok, poisoned)
     insert: Callable         # (cache, req_cache, slot, src) -> cache
     evict: Callable          # (cache, slot)               -> cache
     evict_scrub: Callable    # (cache, slot) -> cache, row zeroed (poisoned)
@@ -165,7 +191,7 @@ def spec_steps_fused(cfg: ArchConfig, params, dcfg: ArchConfig, dparams,
                      force_window: Optional[int] = None,
                      capacity_factor: float = 8.0,
                      dispatch: str = "auto",
-                     fault: Tuple[int, int] = NO_FAULT):
+                     fault: Fault = NO_FAULT):
     """``num_rounds`` draft-then-verify rounds, speculative and plain
     requests sharing one running batch; like decode_steps_fused, nothing
     in the loop waits for the device.
@@ -187,15 +213,16 @@ def spec_steps_fused(cfg: ArchConfig, params, dcfg: ArchConfig, dparams,
     may still spend; draft_len: (B,) per-slot draft length <= spec_len;
     spec_on: (B,) bool, the slot runs the draft model; priors: (B, E)
     correlation priors ((B, 0) when the target has no router).
-    fault: (slot, round) whose verify logits are poisoned with NaN;
-    (-1, -1) disables it.
+    fault: (2,) int32 (slot, round) whose verify logits are poisoned
+    with NaN; (-1, -1) disables it (a pair of ints is accepted too).
 
-    Returns (tok', cache', dcache', remaining', budget',
+    ``tok`` and both caches (their ``cur_len`` too) are updated in
+    place. Returns (tok, cache, dcache, remaining', budget',
     new_tokens (R, B, spec_len+1), num_new (R, B), accepted (R, B),
     drafted (R, B), aux (R, L) per key, poisoned (B,)): harvest round r
     of slot b as ``new_tokens[r, b, :num_new[r, b]]``."""
     B = tok.shape[0]
-    f_slot, f_round = int(fault[0]), int(fault[1])
+    fault = _fault_operand(fault, tok.device)
     use_priors = priors.shape[-1] > 0
     poisoned = torch.zeros((B,), dtype=torch.bool, device=tok.device)
     outs = []
@@ -208,31 +235,29 @@ def spec_steps_fused(cfg: ArchConfig, params, dcfg: ArchConfig, dparams,
         lim = torch.where(dactive, lim, 0).to(torch.int32)
 
         # draft spec_len tokens (one extra step writes the last KV)
-        dstart = dcache["cur_len"]
+        dcur = dcache["cur_len"]
+        dstart = dcur.clone()
         dtok, drafts = tok, []
         for _ in range(spec_len + 1):
-            dcur0 = dcache["cur_len"]
-            dlg, dcache, _ = decode_step(
+            dlg, _, _ = decode_step(
                 dcfg, dparams, dtok[:, None], dcache,
                 capacity_factor=capacity_factor, active=dactive,
                 dispatch=dispatch)
             dtok = torch.where(dactive, greedy(dlg[:, -1]), dtok)
-            dcache["cur_len"] = torch.where(dactive, dcur0 + 1, dcur0)
+            dcur.copy_(torch.where(dactive, dcur + 1, dcur))
             drafts.append(dtok)
         drafts = torch.stack(drafts[:spec_len], dim=1)    # (B, spec_len)
 
         # one verify pass over (B, 1 + spec_len)
         verify_in = torch.cat([tok[:, None], drafts], dim=1)
-        cur0 = cache["cur_len"]
-        vlg, cache, aux = decode_step(
+        cur = cache["cur_len"]
+        vlg, _, aux = decode_step(
             cfg, params, verify_in, cache, policy=policy,
             spec_shape=(B, 1 + spec_len), force_window=force_window,
             capacity_factor=capacity_factor, active=active,
             dispatch=dispatch,
             spec_priors=(priors * active[:, None] if use_priors else None))
-        if round_i == f_round and 0 <= f_slot < B:
-            vlg = vlg.clone()
-            vlg[f_slot] = float("nan")
+        vlg = _inject(vlg, fault, round_i)
         finite = torch.isfinite(vlg).reshape(B, -1).all(dim=1)
         ok = active & finite
         poisoned = poisoned | (active & ~finite)
@@ -242,12 +267,11 @@ def spec_steps_fused(cfg: ArchConfig, params, dcfg: ArchConfig, dparams,
         # ragged rollback: both caches advance by this round's emission;
         # verify KV written above cur0 + num_new is dead and overwritten
         # by later rounds
-        cache["cur_len"] = cur0 + num_new
-        dcache["cur_len"] = torch.where(dactive, dstart + num_new,
-                                        dcache["cur_len"])
+        cur.copy_(cur + num_new)
+        dcur.copy_(torch.where(dactive, dstart + num_new, dcur))
         x0 = torch.gather(res.new_tokens, 1,
                           res.accepted[:, None].long())[:, 0]
-        tok = torch.where(ok, x0, tok)
+        tok.copy_(torch.where(ok, x0, tok))
         remaining = remaining - num_new
         budget = budget - torch.where(dactive, lim, 0)
         outs.append((res.new_tokens, num_new, res.accepted, lim, aux))

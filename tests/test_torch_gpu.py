@@ -645,3 +645,227 @@ def test_ssd_scan_refuses_misaligned_tensors(cuda, dtype, name):
     with pytest.raises(ValueError, match="aligned"):
         K.ssd_scan(t["x"], dt, A, t["Bm"], t["Cm"], chunk=32,
                    init_state=t["init_state"])
+
+
+# ------------------------------------------ decode loops as CUDA graphs ---
+
+def _graph_model(name, dev, policy=None):
+    """A 2-layer reduced model in f32, prefilled on 4 rows of 16 tokens:
+    (cfg, params, tok, cache)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import prefill
+    cfg = ARCHS[name].reduced(num_layers=2, max_d_model=128, max_vocab=256)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=dev)
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int32), device=dev)
+    lg, cache, _ = prefill(cfg, params, prompts, cache_len=64,
+                           capacity_factor=8.0)
+    return cfg, params, lg.argmax(-1).to(torch.int32), cache
+
+
+def _clone_tree(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+def _plain_loop(cfg, params, tok, cache, dev, *, policy=None, chunk=8,
+                temperature=0.0, seed=0):
+    """A GraphLoop over (tok, cache) for decode_steps_fused, and the
+    fused closure itself for the eager side."""
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving import graphs as G
+    from repro_torch.serving.step import NO_FAULT, make_fused
+    fused = make_fused(cfg, policy=policy or OFF, decode_chunk=chunk,
+                       temperature=temperature)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state = G.LoopState({"tok": tok, "cache": cache}, gen)
+
+    def run(t, g, i):
+        return fused(params, t["tok"], t["cache"], i["remaining"], g,
+                     i["fault"])
+    inputs = {"remaining": torch.zeros(4, dtype=torch.int32, device=dev),
+              "fault": torch.tensor(NO_FAULT, dtype=torch.int32,
+                                    device=dev)}
+    return state.loop(0, lambda: (run, inputs)), fused
+
+
+def _check_plain_round(out, ref, state_tok, state_cache, e_tok, e_cache):
+    for i, name in ((2, "toks"), (4, "ok"), (5, "poisoned")):
+        assert torch.equal(out[i], ref[i]), name
+    for k in ref[3]:
+        assert torch.equal(out[3][k], ref[3][k]), k
+    assert torch.equal(state_tok, e_tok)
+    for k, v in e_cache.items():
+        assert torch.equal(state_cache[k], v), k   # bit-equal, cur_len too
+
+
+@pytest.mark.parametrize("name,policy", [
+    ("granite-moe-1b-a400m", "off"), ("granite-moe-1b-a400m", "batch"),
+    ("mamba2-370m", "off"), ("zamba2-1.2b", "off")])
+def test_graph_replay_equals_eager_decode(cuda, name, policy):
+    """Two replays of a captured decode chunk (8 steps, slot 1 running
+    out mid-chunk, slot 3 empty) against decode_steps_fused run eagerly
+    on cloned state: tokens, ok, poisoned and aux exact, tok and every
+    cache tensor bit-equal, and each kernel's launch count the same."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.serving.step import NO_FAULT
+    pol = XSharePolicy(mode="batch", k0=1, m_l=0) if policy == "batch" \
+        else None
+    cfg, params, tok, cache = _graph_model(name, cuda)
+    e_tok, e_cache = tok.clone(), _clone_tree(cache)
+    K.reset_launch_counts()
+    loop, fused = _plain_loop(cfg, params, tok, cache, cuda, policy=pol)
+    assert loop.graph is not None and K.launch_counts() == \
+        {k: 0 for k in K.KERNELS}
+    rem = np.array([20, 3, 20, 0], np.int32)
+    for _ in range(2):
+        K.reset_launch_counts()
+        ref = fused(params, e_tok, e_cache, torch.as_tensor(rem, device=cuda),
+                    None, NO_FAULT)
+        eager_counts = K.launch_counts()
+        K.reset_launch_counts()
+        out = loop(remaining=rem, fault=NO_FAULT)
+        assert K.launch_counts() == eager_counts
+        _check_plain_round(out, ref, tok, cache, e_tok, e_cache)
+        rem = np.maximum(rem - out[4].sum(0).cpu().numpy(), 0) \
+            .astype(np.int32)
+
+
+def test_graph_replay_fault_poisons_one_slot(cuda):
+    """A NaN fault at (slot 3, step 5), set through the static operand of
+    a replay, quarantines exactly slot 3 from step 5 on; the other slots'
+    tokens equal a fault-free eager run's."""
+    from repro_torch.serving.step import NO_FAULT
+    cfg, params, tok, cache = _graph_model("granite-moe-1b-a400m", cuda)
+    e_tok, e_cache = tok.clone(), _clone_tree(cache)
+    loop, fused = _plain_loop(cfg, params, tok, cache, cuda)
+    rem = np.full(4, 20, np.int32)
+    ref = fused(params, e_tok, e_cache, torch.as_tensor(rem, device=cuda),
+                None, NO_FAULT)
+    out = loop(remaining=rem, fault=(3, 5))
+    assert out[5].tolist() == [False, False, False, True]
+    ok = out[4].cpu()
+    assert ok[:5].all() and not ok[5:, 3].any() and ok[:, :3].all()
+    assert torch.equal(out[2][:, :3], ref[2][:, :3])
+    assert torch.equal(out[2][:5], ref[2][:5])
+    cur = cache["cur_len"].cpu()
+    assert cur[3] == e_cache["cur_len"][3].cpu() - 3     # froze at step 5
+    out = loop(remaining=rem, fault=NO_FAULT)            # operand cleared
+    assert not out[5].any()
+
+
+def test_graph_replay_samples_like_eager(cuda):
+    """Temperature 0.8: a replay draws from the registered generator the
+    tokens the eager loop draws from a generator with the same seed, and
+    leaves it in the same state."""
+    from repro_torch.serving.step import NO_FAULT
+    cfg, params, tok, cache = _graph_model("granite-moe-1b-a400m", cuda)
+    e_tok, e_cache = tok.clone(), _clone_tree(cache)
+    loop, fused = _plain_loop(cfg, params, tok, cache, cuda,
+                              temperature=0.8, seed=11)
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    rem = np.full(4, 20, np.int32)
+    for _ in range(2):
+        ref = fused(params, e_tok, e_cache,
+                    torch.as_tensor(rem, device=cuda), gen, NO_FAULT)
+        out = loop(remaining=rem, fault=NO_FAULT)
+        assert torch.equal(out[2], ref[2])
+        assert torch.equal(loop.gen.get_state(), gen.get_state())
+    assert len(set(out[2].flatten().tolist())) > 4, "sampling drew"
+
+
+def test_graph_replay_equals_eager_spec_round(cuda):
+    """A captured speculative dispatch (3 rounds, spec_len 3, the target's
+    params + 0.035 N(0, 1) as the draft, one plain slot, one with a
+    budget of 4) against spec_steps_fused
+    run eagerly on cloned state: every output exact, both caches
+    bit-equal."""
+    from repro_torch import kernels as K
+    from repro_torch.models.model import prefill
+    from repro_torch.serving import graphs as G
+    from repro_torch.serving.step import NO_FAULT, make_spec_fused
+    cfg, params, tok, cache = _graph_model("granite-moe-1b-a400m", cuda)
+    g = torch.Generator(device=cuda)
+    g.manual_seed(9)
+
+    def perturb(tree):
+        return {k: perturb(v) if isinstance(v, dict) else
+                v + 0.035 * torch.randn(v.shape, generator=g, device=cuda)
+                for k, v in tree.items()}
+    dparams = perturb(params)
+    prompts = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int32), device=cuda)
+    _, dcache, _ = prefill(cfg, dparams, prompts, cache_len=64,
+                           capacity_factor=8.0)
+    fused = make_spec_fused(cfg, cfg, spec_len=3, num_rounds=3)
+    state = G.LoopState({"tok": tok, "cache": cache, "dcache": dcache},
+                        torch.Generator(device=cuda))
+    E = cfg.moe.num_experts
+    names = ("remaining", "budget", "draft_len", "spec_on", "priors")
+    ops = dict(remaining=np.array([12, 12, 5, 12], np.int32),
+               budget=np.array([2 ** 30, 4, 2 ** 30, 0], np.int32),
+               draft_len=np.array([3, 2, 3, 0], np.int32),
+               spec_on=np.array([True, True, True, False]),
+               priors=np.random.default_rng(4).random((4, E))
+               .astype(np.float32))
+
+    def run(t, g, i):
+        return fused(params, dparams, t["tok"], t["cache"], t["dcache"],
+                     *(i[n] for n in names), i["fault"])
+    inputs = {n: torch.zeros_like(torch.as_tensor(ops[n]), device=cuda)
+              for n in names}
+    inputs["fault"] = torch.tensor(NO_FAULT, dtype=torch.int32, device=cuda)
+    e = {"tok": tok.clone(), "cache": _clone_tree(cache),
+         "dcache": _clone_tree(dcache)}
+    loop = state.loop(0, lambda: (run, inputs))
+    K.reset_launch_counts()
+    ref = fused(params, dparams, e["tok"], e["cache"], e["dcache"],
+                *(torch.as_tensor(ops[n], device=cuda) for n in names),
+                NO_FAULT)
+    eager_counts = K.launch_counts()
+    K.reset_launch_counts()
+    out = loop(**ops, fault=NO_FAULT)
+    assert K.launch_counts() == eager_counts
+    for i in (3, 4, 5, 6, 7, 8, 10):
+        assert torch.equal(out[i], ref[i]), i
+    assert int(ref[8].sum()) > 0, "nothing was drafted"
+    assert torch.equal(tok, e["tok"])
+    for key in ("cache", "dcache"):
+        for k, v in e[key].items():
+            assert torch.equal(state.tensors[key][k], v), (key, k)
+
+
+def test_engine_generate_replays_and_reuses_its_graphs(cuda):
+    """Engine.generate on the card: continuous (replayed graphs) equals
+    lockstep (eager), the first call pays the capture, a second call
+    captures nothing and gives the same tokens."""
+    from repro_torch.serving import Engine
+    cfg, params, _, _ = _graph_model("granite-moe-1b-a400m", cuda)
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int32)
+    eng = Engine(cfg, params, cache_len=64, device=cuda)
+    lock, _ = eng.generate(prompts, 12, lockstep=True)
+    first, st1 = eng.generate(prompts, 12)
+    second, st2 = eng.generate(prompts, 12)
+    assert np.array_equal(first, lock) and np.array_equal(second, lock)
+    assert st1.capture_s > 0 and st2.capture_s == 0
+    assert len(eng.loops.states()) == 1
+
+
+def test_graph_capture_of_a_host_sync_raises(cuda):
+    """A loop that reads a value back to the host cannot be captured:
+    building its GraphLoop raises, and the card works on after it."""
+    from repro_torch.serving import graphs as G
+    state = G.LoopState({"tok": torch.ones(4, dtype=torch.int32,
+                                           device=cuda)},
+                        torch.Generator(device=cuda))
+
+    def run(t, g, i):
+        n = int(t["tok"].sum())          # a device -> host read
+        return (t["tok"] + n,)
+    with pytest.raises(RuntimeError):
+        state.loop(0, lambda: (run, {}))
+    assert int(torch.ones(3, device=cuda).sum()) == 3
