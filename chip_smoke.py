@@ -40,7 +40,15 @@ each prints its wall time):
                 than 3 CUDA kernels (torch.profiler) or if, in bf16,
                 its time ratio batch / off exceeds the active-expert
                 ratio by more than 0.2; failing if one decode_attention
-                or grouped_ffn call runs more than 2;
+                or grouped_ffn call runs more than 2; decode_attention
+                also at the trained speculation's head dim 16 (8 rows,
+                4 / 2 and 2 / 1 heads, T = 1 and 4, a 75-slot cache,
+                f32); grouped_ffn_bwd (the gradient) at granite's
+                training plan (8 x 128 tokens, top-8 of 32, expert 31
+                without rows, invalid tail tiles, block_t 128) in f32
+                and bf16, each gradient within TOL of its largest
+                magnitude, two calls bit-equal, at most 3 CUDA kernels
+                per call, beside the torch._grouped_mm yardstick;
   3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
                 shared-block application), prefill of 4 x 64 tokens
                 (granite-moe) or 4 x 300 (mamba2, zamba2) then 8 greedy
@@ -117,6 +125,26 @@ each prints its wall time):
                 borrows the crashed one's graph). Prints survival,
                 chaos / fault-free tokens/s, recovery wall time (to the
                 first fresh token), durable and replayed tokens.
+  9. train      (a) granite-moe cut to 2 layers, f32, 4 x 64 synthetic
+                tokens, on the CPU (plain versions) and on the card
+                (grouped_ffn and grouped_ffn_bwd): every gradient leaf
+                and, after one make_train_step, every updated leaf within
+                1e-4 of its largest magnitude, the loss within 2e-5;
+                (b) granite-moe at all 24 layers, f32, remat, 8 x 128
+                tokens from SyntheticLM: every expert that received rows
+                has nonzero w1 / w3 / w2 gradients and no other one, then
+                10 steps whose loss must fall, with the step time,
+                tokens/s, peak memory and grouped_ffn's forward and
+                backward launches per step (one backward per layer);
+                (c) benchmarks/fig5_table4_spec.py's setting trained on
+                the card (the bench target 150 steps, the dense draft 300
+                and 10 / 20 / 40), served 8 x 16 prompts, 48 new,
+                spec_len 3 under Algorithm 4 (HIER) and the naive
+                per-request top-k (NAIVE): tokens equal plain greedy with
+                every draft, a short draft's acceptance strictly in
+                (0, 1), HIER's activated experts per verify pass below
+                NAIVE's; acceptance, accepted per round, activated
+                experts and tokens/s printed.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -167,7 +195,8 @@ SSD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
 PORT_KERNELS = SSD_KERNELS + ("grouped_tc_kernel", "grouped_f32_kernel",
                               "moe_up_kernel", "moe_down_kernel",
                               "moe_reduce_kernel", "decode_split_kernel",
-                              "decode_merge_kernel")
+                              "decode_merge_kernel", "bwd_act_kernel",
+                              "bwd_dx_kernel", "bwd_dw_kernel")
 
 
 def log(*a):
@@ -425,7 +454,30 @@ def kernel_cases(archs):
     for kernel, cases in draft_cases(cfg, cached).items():
         out[kernel] += cases
     out["decode_attention"] += danube_attention_cases(archs)
+    out["decode_attention"] += bench_attention_cases()
     return out
+
+
+def bench_attention_cases():
+    """decode_attention at the trained speculation's shapes (train
+    phase d): bench_cfg's target (4 / 2 heads of 16) and draft_cfg's (2 /
+    1) over 8 rows, a decode step (T = 1) and a verify pass (T = 1 + L_s
+    = 4), in the 75-slot cache of 16 prompt + 48 new + L_s + 8, cur_len
+    16-64, f32. Last and on their own generator; none in a tree whose
+    kernel has no head dim 16 (an older commit's)."""
+    from repro_torch.kernels import decode_attn
+    if 16 not in decode_attn._HEAD_DIMS:
+        return []
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(1616)
+    cases = []
+    for label, a in (("bench target", bench_cfg(32, 4).attn),
+                     ("bench draft", draft_cfg().attn)):
+        for T in (1, 1 + BENCH_SPEC_LEN):
+            cases.append(verify_attention_case(
+                a, "served", torch.float32, g, T=T, label=label,
+                cache=(BENCH_CACHE, BENCH_PROMPT, BENCH_PROMPT + BENCH_NEW)))
+    return cases
 
 
 def danube_attention_cases(archs):
@@ -503,13 +555,14 @@ def cached_mask(cur, T: int, C: int, window):
 
 
 def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH, B=8,
-                          window_cache=None, bf16_abs=None):
+                          window_cache=None, bf16_abs=None, cache=None):
     """decode_attention under the cached_attention contract, B rows of T
     queries (granite's verify shape: 8 x (1 + L_s = 5)) at heads ``a``:
     cur_len ragged over [0, C - T] or at the served lengths 128-160 in a
     cache of 512, or a rolling window of 128 in a cache of 640 with
     cur_len over [0, 3C), so the cache wraps; ``window_cache`` =
-    (window, C) gives another window, cur_len then over [C, 3C), past C.
+    (window, C) gives another window, cur_len then over [C, 3C), past C;
+    ``cache`` = (C, lo, hi) another full cache, cur_len over [lo, hi].
     Beside its bound (the live positions' bytes) and SDPA with the same
     boolean mask.
 
@@ -526,6 +579,8 @@ def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH, B=8,
     if window_cache is not None:
         window, C = window_cache
         lo, hi = C, 3 * C - 1
+    elif cache is not None:
+        window, (C, lo, hi) = None, cache
     else:
         window = 128 if kind == "window" else None
         C = 640 if kind == "window" else 512
@@ -724,13 +779,15 @@ def grouped_mm_yardstick(plan, xs, w1, w3, w2):
 
 def check_kernel_counts(cases):
     """decode_attention's and grouped_ffn's design: at most 2 CUDA
-    kernels per call (split + merge; up + down)."""
-    for name in ("decode_attention", "grouped_ffn"):
-        for c in cases[name]:
-            if not 1 <= c["kernels_per_call"] <= 2:
+    kernels per call (split + merge; up + down); grouped_ffn_bwd's at
+    most 3 (dA / dB / H, dxs, the weight gradients)."""
+    for name, most in (("decode_attention", 2), ("grouped_ffn", 2),
+                       ("grouped_ffn_bwd", 3)):
+        for c in cases.get(name, ()):
+            if not 1 <= c["kernels_per_call"] <= most:
                 fail(f"{name} {c['dtype']} {c.get('model', '')}: one call "
-                     f"ran {c['kernels_per_call']} CUDA kernels, want 1..2: "
-                     f"{c['kernel_device_us']}")
+                     f"ran {c['kernels_per_call']} CUDA kernels, want "
+                     f"1..{most}: {c['kernel_device_us']}")
 
 
 def ssd_work(B, S, nh, hd, g, ds, l, sz, init):
@@ -1031,7 +1088,7 @@ def spec_expect(cfg, dcfg, rounds: int, spec_len: int):
             "moe_ffn": rounds * ((spec_len + 1) * Ld
                                  + (0 if sorted_verify else L)),
             "decode_attention": rounds * ((spec_len + 1) * Ld + L),
-            "ssd_scan": 0}
+            "ssd_scan": 0, "grouped_ffn_bwd": 0}
 
 
 def spec_served(cfg, params, prompts, plain_tokens, *, new=32,
@@ -1937,6 +1994,457 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8,
     return out
 
 
+# -------------------------------------------------------- train phase ---
+
+# The trained speculation of benchmarks/fig5_table4_spec.py, with its
+# training recipe (benchmarks/common.py trained_model / trained_draft):
+# the dataset family, the serving shape, and Algorithm 4 against the
+# naive per-request top-k.
+DATASETS = ("gpqa", "aime2025", "mmlu-pro", "aa-lcr")
+BENCH_PROMPT, BENCH_NEW, BENCH_SPEC_LEN = 16, 48, 3
+BENCH_CACHE = BENCH_PROMPT + BENCH_NEW + BENCH_SPEC_LEN + 8
+BENCH_SPEC_ACCEPTANCE = 1.0   # BENCH_spec.json: 136 of 136 drafted
+TARGET_STEPS, DRAFT_STEPS = 150, 300
+SHORT_DRAFT_STEPS = (10, 20, 40)
+# CPU == GPU train step: the loss as the kernel tests hold an output;
+# each gradient and updated leaf within 1e-4 of its largest magnitude
+# (sums over d = 1024 and 8 x 64 rows in another order)
+TRAIN_LOSS_TOL, TRAIN_LEAF_TOL = 2e-5, 1e-4
+
+
+def bench_cfg(num_experts: int, top_k: int, *, d_model: int = 64,
+              vocab: int = 256, layers: int = 2, d_ff_expert: int = 64,
+              shared: int = 0):
+    """benchmarks/common.py bench_cfg, from repro_torch.configs."""
+    from repro_torch.configs.base import ArchConfig, AttnConfig, MoEConfig
+    return ArchConfig(
+        name=f"bench-moe-{num_experts}e{top_k}k", family="moe",
+        num_layers=layers, d_model=d_model, d_ff=0, vocab_size=vocab,
+        attn=AttnConfig(num_heads=4, num_kv_heads=2, head_dim=16),
+        moe=MoEConfig(num_experts=num_experts, top_k=top_k,
+                      d_ff_expert=d_ff_expert, num_shared_experts=shared,
+                      d_ff_shared=d_ff_expert if shared else 0))
+
+
+def draft_cfg(*, d_model: int = 32, layers: int = 1, d_ff: int = 128,
+              vocab: int = 256):
+    """benchmarks/common.py draft_cfg: a dense draft an order of
+    magnitude cheaper per step than the bench target."""
+    from repro_torch.configs.base import ArchConfig, AttnConfig
+    return ArchConfig(
+        name=f"bench-draft-d{d_model}", family="dense", num_layers=layers,
+        d_model=d_model, d_ff=d_ff, vocab_size=vocab,
+        attn=AttnConfig(num_heads=2, num_kv_heads=1, head_dim=16))
+
+
+def grouped_bwd_cases(archs):
+    """grouped_ffn_bwd against grouped_ffn_bwd_plain at granite-moe's
+    training plan: 8 x 128 tokens routed top-8 of 32 with expert 31 left
+    without rows (its router column at -inf), so the plan has invalid
+    tail tiles and an empty expert, block_t 128; f32 (the training
+    path's dtype) and bf16. Each gradient within TOL of its largest
+    magnitude, two calls bit-equal, timed beside its bound and the
+    torch._grouped_mm yardstick. Own generator, last in the phase."""
+    from repro_torch.core.routing import topk_route
+    from repro_torch.kernels import grouped_ffn_bwd, grouped_ffn_bwd_plain
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+
+    cfg = archs[ARCH]
+    d, E, f, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert, \
+        cfg.moe.top_k
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(2024)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=CUDA)
+                ).to(dtype)
+    x32 = randn(8 * 128, d)
+    logits = x32 @ randn(d, E, scale=0.02)
+    logits[:, E - 1] = -float("inf")
+    idx, w = topk_route(logits, k)
+    plan = dispatch_plan(idx, w, E)
+    bt = plan.block_t
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = torch.finfo(dtype).bits // 8
+        w1, w3 = (randn(E, d, f, scale=0.02, dtype=dtype) for _ in range(2))
+        w2 = randn(E, f, d, scale=0.02, dtype=dtype)
+        xs = gather_tokens(x32.to(dtype), plan)
+        dys = randn(*xs.shape, scale=0.01, dtype=dtype)
+        args = (xs, w1, w3, w2, plan.tile_eid, plan.tile_valid, dys)
+
+        def kernel():
+            return grouped_ffn_bwd(*args, block_t=bt)
+        ker, again = kernel(), kernel()
+        ref = grouped_ffn_bwd_plain(*args, block_t=bt)
+        errs, ok = {}, True
+        for name, a, r in zip(("dxs", "dw1", "dw3", "dw2"), ker, ref):
+            scale = max(float(r.float().abs().max()), 1e-30)
+            errs[name] = max_err(a, r) / scale
+            ok = ok and errs[name] <= TOL[dtype]
+        bit_equal = all(torch.equal(a, b) for a, b in zip(ker, again))
+        n_valid = int(plan.tile_valid.sum())
+        empty = [e for e in range(E) if int(plan.counts[e]) == 0]
+        zeros = all(float(t[e].abs().max()) == 0.0
+                    for t in ker[1:] for e in empty)
+        n_rows = int(plan.counts.sum())
+        occupied = E - len(empty)
+        P = xs.shape[0]
+        # reads: the valid tiles' rows of xs and dys, the occupied
+        # experts' weights, the tile vectors; writes: dxs (P rows) and
+        # the three weight gradients of all E experts
+        nbytes = (2 * n_valid * bt * d * sz + occupied * 3 * d * f * sz
+                  + 2 * plan.tile_eid.numel() * 4 + P * d * sz
+                  + E * 3 * d * f * sz)
+        # recompute A, B (4), G (2), dxs (4), three weight sums (6)
+        flops = 16.0 * n_rows * d * f
+        bms, by = bound_ms(nbytes, flops, dtype)
+        n_kern, kern_us = cuda_kernels_of(kernel)
+        case = dict(
+            dtype=str(dtype).replace("torch.", ""), case="train",
+            model=ARCH,
+            shape=f"P={P} d={d} f={f} E={E} block_t={bt} rows={n_rows} "
+                  f"valid_tiles={n_valid}/{plan.tile_eid.numel()} "
+                  f"empty_experts={empty}",
+            max_abs_err=max(max_err(a, r) for a, r in zip(ker, ref)),
+            rel_err=errs, ok=ok and bit_equal and zeros and bool(empty)
+            and n_valid < plan.tile_eid.numel(),
+            bit_equal=bit_equal, empty_expert_zero=zeros, tol=TOL[dtype],
+            kernels_per_call=n_kern, kernel_device_us=kern_us,
+            ms=time_ms(kernel, iters=10),
+            plain_ms=time_ms(lambda: grouped_ffn_bwd_plain(
+                *args, block_t=bt), iters=5),
+            bound_ms=bms, bound_by=by, library_ms=None)
+        case["tflops"] = flops / case["ms"] / 1e9
+        if dtype == torch.bfloat16:
+            case.update(grouped_mm_bwd_yardstick(plan, *args))
+        log(f"grouped_ffn_bwd {dtype}: errors / max |ref| {errs} (limit "
+            f"{TOL[dtype]}), bit-equal {bit_equal}, empty experts "
+            f"{empty} zero {zeros}; {case['ms']:.4f} ms (bound {bms:.4f} "
+            f"by {by}), {case['tflops']:.1f} TFLOP/s on the real rows, "
+            f"plain {case['plain_ms']:.3f} ms, {n_kern} CUDA kernels per "
+            f"call: {kern_us}; torch._grouped_mm yardstick: "
+            f"{case.get('grouped_mm_ms')}")
+        out.append(case)
+        del w1, w3, w2, xs, dys, ker, again, ref
+    return out
+
+
+def grouped_mm_bwd_yardstick(plan, xs, w1, w3, w2, eid, valid, dys):
+    """The backward's products through torch._grouped_mm on the same
+    padded rows (each expert's segment, padded to block_t, one group):
+    A and B again, G = dys W2^T, dxs = dA W1^T + dB W3^T and the three
+    weight gradients as K-grouped products, with the SwiGLU's elementwise
+    gradient between them. A yardstick of speed only, used nowhere in
+    the port and kept out of the library column."""
+    if not hasattr(torch, "_grouped_mm"):
+        return dict(grouped_mm_ms=None, grouped_mm_note="no torch._grouped_mm")
+    bt = plan.block_t
+    offs = torch.cumsum((plan.counts + bt - 1) // bt * bt, 0,
+                        dtype=torch.int32)
+    rows = int(offs[-1])
+    gm = torch._grouped_mm
+    x, dy = xs[:rows], dys[:rows]
+
+    def run():
+        a = gm(x, w1, offs=offs).float()
+        b = gm(x, w3, offs=offs).float()
+        g = gm(dy, w2.transpose(1, 2), offs=offs).float()
+        s = torch.sigmoid(a)
+        da = (g * b * s * (1 + a * (1 - s))).to(x.dtype)
+        db = (g * a * s).to(x.dtype)
+        h = (a * s * b).to(x.dtype)
+        dx = gm(da, w1.transpose(1, 2), offs=offs) + \
+            gm(db, w3.transpose(1, 2), offs=offs)
+        return (dx, gm(x.t(), da, offs=offs), gm(x.t(), db, offs=offs),
+                gm(h.t(), dy, offs=offs))
+    try:
+        return dict(grouped_mm_ms=time_ms(run, iters=10),
+                    grouped_mm_note="7 torch._grouped_mm calls + the "
+                                    "elementwise gradient")
+    except (RuntimeError, TypeError) as e:   # not built for this card
+        return dict(grouped_mm_ms=None, grouped_mm_note=str(e)[:200])
+
+
+def tree_errs(got, want):
+    """{leaf path: max |got - want| over want's largest magnitude}."""
+    from repro_torch.bridge import flatten
+    g, w = flatten(got), flatten(want)
+    return {k: max_err(g[k].cpu(), w[k].cpu())
+            / max(float(w[k].float().abs().max()), 1e-30) for k in w}
+
+
+def train_parity(cfg):
+    """granite-moe cut to 2 layers, f32, the same seeded params and 4 x
+    64 synthetic tokens on the CPU (plain versions) and on the card
+    (grouped_ffn and its backward kernel): loss_and_grads, every gradient
+    leaf within TRAIN_LEAF_TOL of its largest magnitude; then one
+    make_train_step (remat, clip, AdamW at its default schedule): the
+    loss within TRAIN_LOSS_TOL, every updated leaf within
+    TRAIN_LEAF_TOL."""
+    from repro_torch import kernels as K
+    from repro_torch.bridge import init_params
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import loss_and_grads, make_train_step
+    from repro_torch.models.model import params_to
+    from repro_torch.optim import adamw_init
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params = init_params(cfg2, seed=0, dtype=torch.float32, device="cpu")
+    toks = SyntheticLM(cfg.vocab_size, name=cfg.name).sample(
+        np.random.default_rng(0), 4, 64)
+    step = make_train_step(cfg2)
+    runs = []
+    for dev in ("cpu", CUDA):
+        p = params_to(params, dev)
+        K.reset_launch_counts()
+        loss, grads = loss_and_grads(cfg2, p, torch.as_tensor(toks,
+                                                              device=dev))
+        bwd = K.grouped_ffn_bwd.launches
+        new, _, m = step(p, adamw_init(p), toks)
+        runs.append((float(loss), grads, new, float(m["loss"]),
+                     float(m["grad_norm"]), bwd))
+        del p
+    (lc, gc, pc, mc, nc, _), (lg, gg, pg, mg, ng, bwd) = runs
+    gerr, perr = tree_errs(gg, gc), tree_errs(pg, pc)
+    gworst, pworst = max(gerr, key=gerr.get), max(perr, key=perr.get)
+    res = dict(loss_cpu=lc, loss_gpu=lg, step_loss_cpu=mc,
+               step_loss_gpu=mg, grad_norm_cpu=nc, grad_norm_gpu=ng,
+               worst_grad_leaf=gworst, worst_grad_err=gerr[gworst],
+               worst_param_leaf=pworst, worst_param_err=perr[pworst],
+               bwd_launches=bwd)
+    log(f"train parity {cfg.name}: 2 layers f32, 4 x 64 tokens, CPU vs "
+        f"GPU: {json.dumps(res)} (limits: loss {TRAIN_LOSS_TOL}, leaves "
+        f"{TRAIN_LEAF_TOL} of their largest magnitude)")
+    if abs(lc - lg) > TRAIN_LOSS_TOL or abs(mc - mg) > TRAIN_LOSS_TOL or \
+            gerr[gworst] > TRAIN_LEAF_TOL or perr[pworst] > TRAIN_LEAF_TOL \
+            or abs(nc - ng) > TRAIN_LEAF_TOL * nc:
+        fail(f"train parity {cfg.name}: CPU and GPU disagree")
+    if bwd != cfg2.num_layers:
+        fail(f"train parity {cfg.name}: {bwd} grouped_ffn_bwd launches, "
+             f"want one per layer ({cfg2.num_layers})")
+    return res
+
+
+def train_full_width(cfg, *, steps: int = 10, batch: int = 8,
+                     seq: int = 128):
+    """granite-moe at all its layers, f32 params, remat: first
+    loss_and_grads on step 1's batch with the sorted plans' expert counts
+    recorded, so every expert that received rows must have a nonzero w1,
+    w3 and w2 gradient and every other one a zero gradient; then
+    ``steps`` make_train_step steps at cosine_schedule(3e-4, 2, steps)
+    on SyntheticLM(vocab, name=arch) batches. The loss must be finite and
+    fall, grad_norm finite. Launch counters set to 0 just before the
+    steps and read just after."""
+    from repro_torch import kernels as K
+    from repro_torch.bridge import init_params, param_count
+    from repro_torch.data import SyntheticLM, batches
+    from repro_torch.launch.train import loss_and_grads, make_train_step
+    from repro_torch.models import dispatch
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=CUDA)
+    stream = batches(SyntheticLM(cfg.vocab_size, name=cfg.name),
+                     batch=batch, seq_len=seq, seed=0)
+    data = [next(stream) for _ in range(steps)]
+    counts, plan_of = [], dispatch.dispatch_plan
+
+    def recording_plan(*a, **kw):
+        plan = plan_of(*a, **kw)
+        counts.append(plan.counts)
+        return plan
+    dispatch.dispatch_plan = recording_plan
+    try:
+        _, grads = loss_and_grads(cfg, params,
+                                  torch.as_tensor(data[0], device=CUDA))
+    finally:
+        dispatch.dispatch_plan = plan_of
+    L = cfg.num_layers
+    routed = torch.stack(counts[:L]) > 0          # the forward's plans
+    moe = grads["layers"]["moe"]
+    nonzero = torch.stack([(moe[k] != 0).flatten(2).any(-1)
+                           for k in ("w1", "w3", "w2")])   # (3, L, E)
+    if not torch.equal(nonzero, routed[None].expand_as(nonzero)):
+        fail(f"train {cfg.name}: expert weight gradients nonzero exactly "
+             f"where the experts received rows? no")
+    del grads
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=cosine_schedule(3e-4, 2, steps))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, norms, times = [], [], []
+    for toks in data:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, toks)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    launches = K.launch_counts()
+    step_s = float(np.median(times[1:]))
+    prof = train_step_profile(step, params, opt, data[0], step_s)
+    res = dict(layers=L, params_b=param_count(params) / 1e9,
+               batch=batch, seq=seq, steps=steps, losses=losses,
+               grad_norms=norms, step_s=step_s, first_step_s=times[0],
+               tokens_per_s=batch * seq / step_s,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               launches=launches,
+               fwd_per_step=launches["grouped_ffn"] / steps,
+               bwd_per_step=launches["grouped_ffn_bwd"] / steps,
+               routed_experts=int(routed.sum()), profile=prof)
+    log(f"train {cfg.name}: {L} layers, f32, remat, {batch} x {seq} "
+        f"tokens: {json.dumps(res)}")
+    if not all(np.isfinite(losses + norms)) or losses[-1] >= losses[0]:
+        fail(f"train {cfg.name}: the loss did not fall or is not finite")
+    if launches["grouped_ffn_bwd"] != L * steps or \
+            launches["grouped_ffn"] < L * steps:
+        fail(f"train {cfg.name}: launches {launches}, want one backward "
+             f"per layer per step")
+    del params, opt
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_step_profile(step, params, opt, toks, step_s: float):
+    """torch.profiler (CUDA activity only) over one more train step:
+    device busy ms (the kernels' durations summed), the idle share
+    against the unprofiled median step, the kernel count, the eight
+    kernels that take the most device time and the port's kernels' ms
+    in the step."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step(params, opt, toks)
+        torch.cuda.synchronize()
+    kern = cuda_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(device_busy_ms=busy, idle=1 - busy / (step_s * 1e3),
+                kernels=sum(e.count for e in kern),
+                top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
+                     for e in top],
+                port_kernels_ms=port_kernels_ms(kern, 1))
+
+
+def train_bench(cfg, steps: int, seed: int, **kw):
+    """benchmarks/common.py trained_model / trained_draft on the card:
+    ``steps`` steps at cosine_schedule(3e-3, 10, steps), remat off, on
+    8 x 64 batches rotating over the dataset family, from params of the
+    port's initializer at ``seed`` drawn on the CPU (so a CPU run of this
+    recipe starts from the same numbers). Returns (params, losses)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data import make_dataset_family
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import params_to
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    params = params_to(init_params(cfg, seed=seed, device="cpu"), CUDA)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=cosine_schedule(3e-3, 10, steps),
+                           remat=False, **kw)
+    fam = make_dataset_family(cfg.vocab_size, DATASETS)
+    rng = np.random.default_rng(seed)
+    names, losses = list(fam), []
+    for i in range(steps):
+        params, opt, m = step(params, opt,
+                              fam[names[i % len(names)]].sample(rng, 8, 64))
+        losses.append(m["loss"])
+    return params, [float(x) for x in losses]
+
+
+def trained_spec():
+    """fig5_table4_spec's setting on the card: the bench target trained
+    150 steps (capacity_factor 4, seed 0) and the dense draft 300 steps
+    (seed 1), then drafts cut short at SHORT_DRAFT_STEPS; 8 prompts of 16
+    tokens, two per dataset (eval_tokens' layout, seed 123), 48 new,
+    spec_len 3, under HIER and NAIVE. Tokens must equal plain greedy
+    under every policy and draft; the first short draft whose acceptance
+    lies strictly in (0, 1) is named (the phase fails if none does);
+    with the 300-step draft HIER must activate fewer experts per verify
+    pass than NAIVE."""
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.data import make_dataset_family
+    from repro_torch.serving import Engine
+
+    policies = {"HIER": XSharePolicy(mode="spec", k0=1, m_l=2, m_r=1,
+                                     corr=1.0),
+                "NAIVE": XSharePolicy(mode="spec", k0=0, m_l=0, m_r=4,
+                                      corr=0.0)}
+    cfg, dcfg = bench_cfg(32, 4), draft_cfg()
+    t0 = time.perf_counter()
+    params, tlosses = train_bench(cfg, TARGET_STEPS, 0, capacity_factor=4.0)
+    drafts = {DRAFT_STEPS: train_bench(dcfg, DRAFT_STEPS, 1)}
+    for n in SHORT_DRAFT_STEPS:
+        drafts[n] = train_bench(dcfg, n, 1)
+    train_s = time.perf_counter() - t0
+    fam = make_dataset_family(cfg.vocab_size, DATASETS)
+    rng = np.random.default_rng(123)
+    prompts = np.concatenate([fam[n].sample(rng, 2, BENCH_PROMPT)
+                              for n in DATASETS], axis=0)
+    plain, _ = Engine(cfg, params, cache_len=BENCH_CACHE,
+                      device=CUDA).generate(prompts, BENCH_NEW)
+    runs, short = {}, None
+    for steps, (dparams, dlosses) in drafts.items():
+        for pname, pol in policies.items():
+            eng = Engine(cfg, params, policy=pol, cache_len=BENCH_CACHE,
+                         draft=(dcfg, dparams), spec_len=BENCH_SPEC_LEN,
+                         device=CUDA)
+            eng.generate(prompts, BENCH_NEW)       # captures the graphs
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            toks, st = eng.generate(prompts, BENCH_NEW)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            runs[f"{steps}-step draft {pname}"] = dict(
+                draft_steps=steps, policy=pname,
+                draft_final_loss=dlosses[-1],
+                acceptance_rate=st.acceptance_rate,
+                mean_accepted=st.mean_accepted, drafted=st.drafted,
+                accepted=st.accepted, rounds=st.steps,
+                activated_experts=st.mean_aux("activated_experts"),
+                tokens_per_s=prompts.shape[0] * BENCH_NEW / wall,
+                equal_to_plain=bool(np.array_equal(toks, plain)))
+            log(f"trained spec {steps}-step draft {pname}: "
+                f"{json.dumps(runs[f'{steps}-step draft {pname}'])}")
+        if short is None and steps in SHORT_DRAFT_STEPS and any(
+                0.0 < runs[f"{steps}-step draft {p}"]["acceptance_rate"]
+                < 1.0 for p in policies):
+            short = steps
+    full = {p: runs[f"{DRAFT_STEPS}-step draft {p}"] for p in policies}
+    # how varied the target's greedy text is: a draft that knows only
+    # the most frequent successors agrees with a text that cycles
+    distinct = float(np.mean([len(set(r.tolist())) for r in plain]))
+    res = dict(target_losses=[tlosses[0], tlosses[-1]],
+               plain_distinct_tokens_per_row=distinct,
+               draft_losses={n: [d[1][0], d[1][-1]]
+                             for n, d in drafts.items()},
+               train_s=train_s, runs=runs, short_draft_in_0_1=short,
+               acceptance_300=full["HIER"]["acceptance_rate"],
+               reference_acceptance=BENCH_SPEC_ACCEPTANCE,
+               activated_hier=full["HIER"]["activated_experts"],
+               activated_naive=full["NAIVE"]["activated_experts"])
+    log(f"trained spec: target loss {tlosses[0]:.3f} -> {tlosses[-1]:.3f}; "
+        f"{DRAFT_STEPS}-step draft acceptance HIER "
+        f"{full['HIER']['acceptance_rate']:.4f} / NAIVE "
+        f"{full['NAIVE']['acceptance_rate']:.4f} (the reference's "
+        f"BENCH_spec.json: {BENCH_SPEC_ACCEPTANCE}); first short draft "
+        f"with acceptance in (0, 1): {short}; activated experts per "
+        f"verify pass HIER {res['activated_hier']:.3f} vs NAIVE "
+        f"{res['activated_naive']:.3f} (reference 9.58 vs 10.25); plain "
+        f"greedy text: {distinct:.2f} distinct tokens in a row's "
+        f"{BENCH_NEW}")
+    bad = [k for k, r in runs.items() if not r["equal_to_plain"]]
+    if bad:
+        fail(f"trained spec: tokens differ from plain greedy in {bad}")
+    if short is None:
+        fail(f"trained spec: no draft of {SHORT_DRAFT_STEPS} steps gave an "
+             f"acceptance strictly between 0 and 1")
+    if not res["activated_hier"] < res["activated_naive"]:
+        fail("trained spec: HIER activated no fewer experts than NAIVE")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1966,6 +2474,7 @@ def main() -> int:
     with Phase("kernels"), torch.no_grad():
         cases = kernel_cases(ARCHS)
         cases["ssd_scan"] = ssd_cases(ARCHS)
+        cases["grouped_ffn_bwd"] = grouped_bwd_cases(ARCHS)
     bad = [(n, c["dtype"], c.get("policy"), c.get("model"),
             c.get("init_state"), c.get("dt_shift"))
            for n, cs in cases.items() for c in cs if not c["ok"]]
@@ -2052,8 +2561,23 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    # training: the one kernel on its path is grouped_ffn, forward and
+    # backward (the train step's counters are the backward's launches)
+    with Phase(f"train {ARCH}"):
+        train = {"parity": train_parity(cfg),
+                 "full_width": train_full_width(cfg)}
+        torch.cuda.empty_cache()
+    with Phase("trained spec"):
+        train["trained_spec"] = trained_spec()
+        torch.cuda.empty_cache()
+
     sources = {"grouped_ffn": ("src/repro_torch/kernels/csrc/grouped_ffn.cu",
                                "src/repro/kernels/moe_ffn.py:155"),
+               # the gradient of the same TPU kernel (the JAX package
+               # differentiates its jnp twin; Pallas has no backward)
+               "grouped_ffn_bwd": (
+                   "src/repro_torch/kernels/csrc/grouped_ffn_bwd.cu",
+                   "src/repro/kernels/moe_ffn.py:155"),
                "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
                            "src/repro/kernels/moe_ffn.py:77"),
                "decode_attention": (
@@ -2063,28 +2587,34 @@ def main() -> int:
                             "src/repro/kernels/ssd_scan.py:66")}
     line = []
     for name, cs in cases.items():
-        main_case = next(c for c in cs if c["dtype"] == "bfloat16")
+        # serving's main path runs bf16; training (the backward) f32
+        main_dtype = "float32" if name == "grouped_ffn_bwd" else "bfloat16"
+        main_case = next(c for c in cs if c["dtype"] == main_dtype)
         f32 = next(c for c in cs if c["dtype"] == "float32")
         tol = SCAN_TOL if name == "ssd_scan" else TOL
+        # summed over every main path's continuous runs; the backward's
+        # over the full-width train steps
+        launches = train["full_width"]["launches"][name] \
+            if name == "grouped_ffn_bwd" else \
+            sum(r["launches"][name] for runs in results.values()
+                for r in runs.values())
         line.append(dict(
             name=name, route="cuda", source=sources[name][0],
-            replaces=sources[name][1],
-            # summed over every main path's continuous runs
-            launches=sum(r["launches"][name] for runs in results.values()
-                         for r in runs.values()),
+            replaces=sources[name][1], launches=launches,
             max_abs_err=main_case["max_abs_err"], ms=main_case["ms"],
             plain_ms=main_case["plain_ms"], bound_ms=main_case["bound_ms"],
             bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"],
-            dtype="bfloat16", shape=main_case["shape"],
-            tol=tol[torch.bfloat16], max_abs_err_f32=f32["max_abs_err"],
+            dtype=main_dtype, shape=main_case["shape"],
+            tol=tol[getattr(torch, main_dtype)],
+            max_abs_err_f32=f32["max_abs_err"],
             tol_f32=tol[torch.float32], cases=cs))
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": line, "main_path": results,
                       "parity": parity, "spec_lossless": lossless,
                       "bf16_check": bf16_check, "profile": prof,
                       "graphs": graphs, "durability": durability,
-                      "card": card}),
+                      "train": train, "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

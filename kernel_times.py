@@ -12,7 +12,8 @@ that tree's kernels, with this checkout's ``time_ms`` (L2 flushed, the
 host's enqueueing outside the timed window). It holds each kernel to its
 plain version as those functions do, and checks no design goal of this
 checkout's kernels. Cases a tree's kernel has no instance for (head dim
-80, h2o-danube's, before it was built) are left out for that tree. Prints one JSON line per case (source, kernel, dtype,
+80, h2o-danube's, and 16, the trained speculation's, before they were
+built; grouped_ffn_bwd before it existed) are left out for that tree. Prints one JSON line per case (source, kernel, dtype,
 case, ms, the library call's or yardstick's ms, CUDA kernels per call);
 FILE gets every case in full. To compare commits A and B, run A, B, B, A in one call."""
 from __future__ import annotations
@@ -25,7 +26,7 @@ from pathlib import Path
 import chip_smoke
 
 KEYS = ("dtype", "case", "policy", "model", "lengths", "init_state",
-        "dt_shift",
+        "dt_shift", "rel_err", "bit_equal",
         "active", "max_active", "ms", "library_ms", "ms_over_sdpa",
         "grouped_mm_ms", "kernels_per_call", "max_abs_err", "ok")
 
@@ -48,9 +49,12 @@ def main() -> int:
         raise RuntimeError(f"repro_torch came from {repro_torch.__file__}")
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
+    from repro_torch import kernels as K
     with torch.no_grad():
         cases = chip_smoke.kernel_cases(ARCHS)
         cases["ssd_scan"] = chip_smoke.ssd_cases(ARCHS)
+        if hasattr(K, "grouped_ffn_bwd"):
+            cases["grouped_ffn_bwd"] = chip_smoke.grouped_bwd_cases(ARCHS)
     card = chip_smoke.gpu_name_power()
     for name, cs in cases.items():
         for c in cs:

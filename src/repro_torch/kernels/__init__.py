@@ -1,7 +1,8 @@
-"""Hand-written Hopper kernels of the serving path, each beside its plain
-PyTorch version.
+"""Hand-written Hopper kernels of the serving and training paths, each
+beside its plain PyTorch version.
 
   grouped_ffn       prefill's sorted expert FFN     (csrc/grouped_ffn.cu)
+  grouped_ffn_bwd   its gradient, for training      (csrc/grouped_ffn_bwd.cu)
   moe_ffn           a decode step's masked FFN      (csrc/moe_ffn.cu)
   decode_attention  flash-decode GQA over the cache (csrc/decode_attn.cuh)
   ssd_scan          Mamba2's chunked SSD scan       (csrc/ssd_scan.cu)
@@ -14,14 +15,16 @@ from repro_torch.kernels.decode_attn import (  # noqa: F401
     decode_attention_plain,
 )
 from repro_torch.kernels.moe_ffn import (  # noqa: F401
-    grouped_ffn, grouped_ffn_plain, moe_ffn, moe_ffn_plain,
+    GroupedFFN, grouped_ffn, grouped_ffn_bwd, grouped_ffn_bwd_plain,
+    grouped_ffn_plain, moe_ffn, moe_ffn_plain,
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: F401
     ssd_scan, ssd_scan_plain,
 )
 
 KERNELS = {"grouped_ffn": grouped_ffn, "moe_ffn": moe_ffn,
-           "decode_attention": decode_attention, "ssd_scan": ssd_scan}
+           "decode_attention": decode_attention, "ssd_scan": ssd_scan,
+           "grouped_ffn_bwd": grouped_ffn_bwd}
 
 
 def reset_launch_counts() -> None:

@@ -34,6 +34,7 @@ _I = ctypes.c_int
 # C signature of every entry point: name -> argument types (return: int)
 SIGNATURES = {
     "grouped_ffn": [_P] * 8 + [_I] * 5 + [_P],
+    "grouped_ffn_bwd": [_P] * 14 + [_I] * 6 + [_P],
     "moe_ffn": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 8 + [_P],
     "decode_attention": [_P] * 6 + [_I] * 12 + [ctypes.c_float, _I, _P],
     "decode_attention_step": [_I, _I],
@@ -137,3 +138,16 @@ def dtype_code(t) -> int:
     if name not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
     return DTYPE_CODES[name]
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise where a kernel without a backward would drop a gradient: the
+    output of a launch is written through a pointer and has no grad_fn,
+    so under autograd a tensor that requires grad must not reach it."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad; run it under torch.no_grad(), or train on a "
+            f"path with a gradient")

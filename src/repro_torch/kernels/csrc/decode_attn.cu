@@ -6,6 +6,7 @@
 template <typename T>
 int step_of(int dh) {
   switch (dh) {
+    case 16: return block_step<T, 16>();
     case 32: return block_step<T, 32>();
     case 64: return block_step<T, 64>();
     case 80: return block_step<T, 80>();
@@ -48,6 +49,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                      shift, nq, n_qt, n_split, span, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dh) {
+    case 16: return decode_attn_dh16(a, dtype, s);
     case 32: return decode_attn_dh32(a, dtype, s);
     case 64: return decode_attn_dh64(a, dtype, s);
     case 80: return decode_attn_dh80(a, dtype, s);

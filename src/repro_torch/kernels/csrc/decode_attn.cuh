@@ -445,6 +445,7 @@ constexpr int block_step() {
   return NW * U * Geo<T, DH>::PPW;
 }
 
+int decode_attn_dh16(const DecodeArgs& a, int dtype, cudaStream_t s);
 int decode_attn_dh32(const DecodeArgs& a, int dtype, cudaStream_t s);
 int decode_attn_dh64(const DecodeArgs& a, int dtype, cudaStream_t s);
 int decode_attn_dh80(const DecodeArgs& a, int dtype, cudaStream_t s);

@@ -13,6 +13,8 @@ Two entry points reach the one kernel:
 
 A CPU tensor goes to the plain version, a CUDA tensor to the kernel;
 ``decode_attention.launches`` counts the kernel's launches from either.
+The kernel has no backward: on the card an input that requires grad
+raises (the plain versions keep their autograd).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ import torch
 
 from repro_torch.kernels import build
 
-_HEAD_DIMS = (32, 64, 80, 128, 256)   # csrc/decode_attn_dh*.cu
+_HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # csrc/decode_attn_dh*.cu
 _MAX_TILE = 8     # queries of one KV head the kernel holds in registers
 _BLOCKS_PER_SM = 16      # the most split blocks per SM a full cache gives
 _NEG = -1e30
@@ -148,6 +150,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     whole cache)."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for {q.device}")
+    build.refuse_grad("decode_attention", q, k, v)
     B, T, H, dh = q.shape
     C, Hkv = k.shape[1], k.shape[2]
     if k.shape != (B, C, Hkv, dh) or v.shape != k.shape:

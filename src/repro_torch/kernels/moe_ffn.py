@@ -1,11 +1,16 @@
-"""Expert-FFN kernels: the XShare masked expert FFN (``moe_ffn``) and the
-sort-based grouped expert FFN (``grouped_ffn``), each with its plain
-PyTorch version beside it.
+"""Expert-FFN kernels: the XShare masked expert FFN (``moe_ffn``), the
+sort-based grouped expert FFN (``grouped_ffn``) and its gradient
+(``grouped_ffn_bwd``), each with its plain PyTorch version beside it.
 
 A wrapper sends a CPU tensor to the plain version and a CUDA tensor to
-the hand-written kernel (``csrc/moe_ffn.cu``, ``csrc/grouped_ffn.cu``);
-there is no other fallback. Each wrapper counts its launches in a plain
-integer attribute, ``moe_ffn.launches`` / ``grouped_ffn.launches``.
+the hand-written kernel (``csrc/moe_ffn.cu``, ``csrc/grouped_ffn.cu``,
+``csrc/grouped_ffn_bwd.cu``); there is no other fallback. Each wrapper
+counts its launches in a plain integer attribute, ``moe_ffn.launches``,
+``grouped_ffn.launches``, ``grouped_ffn_bwd.launches``.
+
+Under autograd ``grouped_ffn`` is a ``torch.autograd.Function`` whose
+backward is ``grouped_ffn_bwd``; ``moe_ffn`` has no backward and on the
+card refuses an input that requires grad.
 """
 from __future__ import annotations
 
@@ -74,6 +79,7 @@ def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     _require(x.device.type == "cuda", f"moe_ffn: no kernel for {x.device}")
     T, d = x.shape
     E, _, f = w1.shape
+    build.refuse_grad("moe_ffn", x, w1, w3, w2, combine)
     _require(1 <= T <= MAX_TOKENS, f"moe_ffn: T={T} outside 1..{MAX_TOKENS}")
     _require(d % 8 == 0 and f % 8 == 0,
              f"moe_ffn: d={d} and f={f} must be multiples of 8")
@@ -140,7 +146,24 @@ def grouped_ffn(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     block_t; tile_eid, tile_valid: (P / block_t,). On the GPU d and f
     must be multiples of 8 and xs and the weights 16-byte aligned (the
     kernel copies them in 16-byte vectors); a call is two CUDA kernels
-    (up, then down chained by programmatic dependent launch)."""
+    (up, then down chained by programmatic dependent launch).
+
+    When autograd records (grad enabled and xs or a weight requires
+    grad) the call goes through ``GroupedFFN``, whose backward is
+    ``grouped_ffn_bwd``: the kernel on the card, the plain gradient on
+    the CPU."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xs, w1, w3, w2)):
+        return GroupedFFN.apply(xs, w1, w3, w2, tile_eid, tile_valid,
+                                block_t)
+    return _grouped_ffn(xs, w1, w3, w2, tile_eid, tile_valid,
+                        block_t=block_t)
+
+
+def _grouped_ffn(xs, w1, w3, w2, tile_eid, tile_valid, *,
+                 block_t: int) -> torch.Tensor:
+    """grouped_ffn's forward: the plain version on the CPU, the kernel on
+    the card."""
     if xs.device.type == "cpu":
         return grouped_ffn_plain(xs, w1, w3, w2, tile_eid, tile_valid,
                                  block_t=block_t)
@@ -179,3 +202,118 @@ def grouped_ffn(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 grouped_ffn.launches = 0
+
+
+class GroupedFFN(torch.autograd.Function):
+    """grouped_ffn with its gradient: the forward is the kernel (or its
+    plain version on the CPU) as it is; the backward recomputes the
+    SwiGLU's pre-activations from the saved rows and weights, so the
+    forward stores nothing extra. The tile vectors and block_t get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, xs, w1, w3, w2, tile_eid, tile_valid, block_t):
+        ctx.save_for_backward(xs, w1, w3, w2, tile_eid, tile_valid)
+        ctx.block_t = block_t
+        return _grouped_ffn(xs, w1, w3, w2, tile_eid, tile_valid,
+                            block_t=block_t)
+
+    @staticmethod
+    def backward(ctx, dys):
+        xs, w1, w3, w2, tile_eid, tile_valid = ctx.saved_tensors
+        dxs, dw1, dw3, dw2 = grouped_ffn_bwd(
+            xs, w1, w3, w2, tile_eid, tile_valid,
+            dys.to(xs.dtype).contiguous(), block_t=ctx.block_t)
+        return dxs, dw1, dw3, dw2, None, None, None
+
+
+def grouped_ffn_bwd_plain(xs: torch.Tensor, w1: torch.Tensor,
+                          w3: torch.Tensor, w2: torch.Tensor,
+                          tile_eid: torch.Tensor, tile_valid: torch.Tensor,
+                          dys: torch.Tensor, *, block_t: int):
+    """The gradient of grouped_ffn_plain written out, in f32: with
+    A = xs W1[e], B = xs W3[e], s = sigmoid(A), H = silu(A) B and
+    G = dys W2[e]^T per tile,
+
+      dA = G B s (1 + A (1 - s)),  dB = G silu(A),
+      dxs = dA W1[e]^T + dB W3[e]^T,
+      dW1[e] = sum xs^T dA,  dW3[e] = sum xs^T dB,  dW2[e] = sum H^T dys
+
+    over e's valid tiles; rows of invalid tiles give zeros, and an expert
+    with no rows a zero weight gradient. Returns (dxs, dw1, dw3, dw2) in
+    the dtypes of xs and the weights."""
+    P, d = xs.shape
+    E, _, f = w1.shape
+    nt = P // block_t
+    live = (tile_valid != 0).float()[:, None, None]
+    eid = tile_eid.long()
+    xf = xs.reshape(nt, block_t, d).float()
+    dy = dys.reshape(nt, block_t, d).float() * live
+    w1g, w3g, w2g = (w.float()[eid] for w in (w1, w3, w2))
+    a = torch.einsum("tbd,tdf->tbf", xf, w1g)
+    b = torch.einsum("tbd,tdf->tbf", xf, w3g)
+    g = torch.einsum("tbd,tfd->tbf", dy, w2g)
+    s = torch.sigmoid(a)
+    silu = a * s
+    da = g * b * s * (1 + a * (1 - s))
+    db = g * silu
+    dxs = torch.einsum("tbf,tdf->tbd", da, w1g) + \
+        torch.einsum("tbf,tdf->tbd", db, w3g)
+
+    def per_expert(t):   # (nt, ...) per-tile sums -> (E, ...)
+        out = torch.zeros((E,) + t.shape[1:], dtype=t.dtype,
+                          device=t.device)
+        return out.index_add_(0, eid, t)
+    dw1 = per_expert(torch.einsum("tbd,tbf->tdf", xf, da))
+    dw3 = per_expert(torch.einsum("tbd,tbf->tdf", xf, db))
+    dw2 = per_expert(torch.einsum("tbf,tbd->tfd", silu * b, dy))
+    return (dxs.reshape(P, d).to(xs.dtype), dw1.to(w1.dtype),
+            dw3.to(w3.dtype), dw2.to(w2.dtype))
+
+
+def grouped_ffn_bwd(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                    w2: torch.Tensor, tile_eid: torch.Tensor,
+                    tile_valid: torch.Tensor, dys: torch.Tensor, *,
+                    block_t: int):
+    """grouped_ffn's gradient for the output gradient dys (P, d): returns
+    (dxs, dw1, dw3, dw2). On the card three CUDA kernels
+    (csrc/grouped_ffn_bwd.cu) in IEEE f32 on the CUDA cores, with f32
+    scratches of (P, f) for dA, dB and H, and no atomics, so two calls
+    give the same bits; on the CPU the plain version."""
+    if xs.device.type == "cpu":
+        return grouped_ffn_bwd_plain(xs, w1, w3, w2, tile_eid, tile_valid,
+                                     dys, block_t=block_t)
+    _require(xs.device.type == "cuda",
+             f"grouped_ffn_bwd: no kernel for {xs.device}")
+    P, d = xs.shape
+    E, _, f = w1.shape
+    _require(P % block_t == 0,
+             f"grouped_ffn_bwd: P={P} % block_t={block_t}")
+    nt = P // block_t
+    _require(w1.shape == w3.shape == (E, d, f) and w2.shape == (E, f, d),
+             "grouped_ffn_bwd: weight shapes")
+    _require(dys.shape == xs.shape, "grouped_ffn_bwd: dys shape")
+    _require(tile_eid.shape == (nt,) and tile_valid.shape == (nt,),
+             "grouped_ffn_bwd: tile vector shapes")
+    _require(xs.dtype == dys.dtype == w1.dtype == w3.dtype == w2.dtype,
+             "grouped_ffn_bwd: xs, dys and weights must share a dtype")
+    eid = tile_eid.to(torch.int32).contiguous()
+    valid = tile_valid.to(torch.int32).contiguous()
+    _check_cuda("grouped_ffn_bwd", xs.device, xs=xs, w1=w1, w3=w3, w2=w2,
+                dys=dys, tile_eid=eid, tile_valid=valid)
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    da, db, h = (torch.empty((P, f), **f32) for _ in range(3))
+    dxs = torch.empty_like(xs)
+    dw1, dw3, dw2 = (torch.empty_like(w) for w in (w1, w3, w2))
+    build.check(build.lib().grouped_ffn_bwd(
+        xs.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        eid.data_ptr(), valid.data_ptr(), dys.data_ptr(), da.data_ptr(),
+        db.data_ptr(), h.data_ptr(), dxs.data_ptr(), dw1.data_ptr(),
+        dw3.data_ptr(), dw2.data_ptr(), P, d, f, E, block_t,
+        build.dtype_code(xs), build.stream_ptr(xs.device)),
+        "grouped_ffn_bwd")
+    grouped_ffn_bwd.launches += 1
+    return dxs, dw1, dw3, dw2
+
+
+grouped_ffn_bwd.launches = 0

@@ -5,7 +5,10 @@ The contract is the JAX package's ``models/ssm.py ssd_chunked``: Bm and
 Cm per group (head h reads group h // (nh // g)), an optional initial
 state, a ragged last chunk. A CPU tensor goes to the plain version, a
 CUDA tensor to the kernel; ``ssd_scan.launches`` counts the kernel's
-calls (one call is the kernel's three passes).
+calls (one call is the kernel's three passes). The kernel has no
+backward: on the card an input that requires grad raises, so an SSM or
+hybrid train step fails there instead of losing its gradient (the plain
+version keeps its autograd).
 """
 from __future__ import annotations
 
@@ -94,6 +97,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                               init_state=init_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan: no kernel for {x.device}")
+    build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, init_state)
     Bsz, S, nh, hd = x.shape
     g, ds = Bm.shape[2], Bm.shape[3]
     if dt.shape != (Bsz, S, nh) or A.shape != (nh,) or \

@@ -122,7 +122,11 @@ def gather_tokens(x: torch.Tensor, plan: DispatchPlan) -> torch.Tensor:
 def grouped_ffn_apply(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                       w2: torch.Tensor, plan: DispatchPlan) -> torch.Tensor:
     """The grouped FFN over a plan's layout: the CUDA kernel for CUDA
-    tensors, its plain version (the tile-gather einsum) for CPU ones."""
+    tensors, its plain version (the tile-gather einsum) for CPU ones.
+    Under autograd it is ``kernels.GroupedFFN``, so gradients reach the
+    rows and the three expert weights through ``grouped_ffn_bwd``; the
+    gather and the combine around it are index writes into fresh zero
+    buffers, which autograd follows to x and the gate weights."""
     return grouped_ffn(xs, w1, w3, w2, plan.tile_eid, plan.tile_valid,
                        block_t=plan.block_t)
 

@@ -1,8 +1,9 @@
-"""Basic blocks: norms and MLPs, as plain functions on tensors. Stacked
-layer parameters carry a leading (L, ...) axis that model.py indexes."""
+"""Basic blocks: norms, MLPs and the cross-entropy, as plain functions on
+tensors. Stacked layer parameters carry a leading (L, ...) axis that
+model.py indexes."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -27,3 +28,18 @@ def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         raise ValueError(act)
     return h @ params["w2"]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy. logits (..., V) in any float dtype,
+    taken in f32; labels integer (...,); mask (...,) optional, the mean
+    then over its live positions (at least one)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()

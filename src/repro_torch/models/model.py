@@ -9,7 +9,9 @@ layers run as a Python loop over it. ``Model`` is the ``nn.Module`` that
 owns such a tree (device placement, ``.to``); the functions below take
 the tree itself.
 
-  forward      full sequence, no cache
+  forward      full sequence, no cache (``_backbone`` + the head)
+  loss_fn      next-token cross-entropy for training (``_backbone`` with
+               per-layer remat, ``_fused_head_ce``)
   prefill      full sequence, builds the decode cache
   decode_step  T new tokens per row against the cache
 
@@ -26,6 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import flatten, unflatten
 from repro_torch.configs.base import ArchConfig, XSharePolicy
@@ -192,40 +195,107 @@ def effective_window(cfg: ArchConfig, *,
 
 # -------------------------------------------------------------- forward ---
 
-def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
-            policy: XSharePolicy = OFF,
-            spec_shape: Optional[Tuple[int, int]] = None,
-            window: Optional[int] = None,
-            capacity: Optional[int] = None,
-            capacity_factor: float = 1.25,
-            dispatch: str = "auto"):
-    """Full-sequence forward. Returns (logits over all positions, aux)."""
+def _backbone(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+              prefix_embeds: Optional[torch.Tensor] = None,
+              policy: XSharePolicy = OFF,
+              spec_shape: Optional[Tuple[int, int]] = None,
+              remat: bool = False,
+              window: Optional[int] = None,
+              capacity: Optional[int] = None,
+              capacity_factor: float = 1.25,
+              dispatch: str = "auto"):
+    """Full-sequence backbone. Returns (final-normed hidden states (B, S,
+    d), aux stacked over the layers).
+
+    window overrides the config's sliding window. remat=True runs each
+    layer (each SSM layer of the hybrid; not its shared block, as in
+    the JAX package) under ``torch.utils.checkpoint``: its activations
+    are recomputed in the backward instead of kept. prefix_embeds (the
+    VLM and audio families' prefix) is not ported and raises."""
+    if prefix_embeds is not None:
+        raise NotImplementedError("prefix embeddings are not ported yet")
     x = embed_tokens(cfg, params, tokens)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
     win = window if window is not None else effective_window(cfg)
+
+    def run(layer, i, h):
+        if remat:
+            return checkpoint(layer, i, h, use_reentrant=False)
+        return layer(i, h)
+
     auxs = []
     if cfg.family in _SSM_FAMILIES:
+        def ssm_layer(i, h):
+            return _ssm_layer(cfg, params, i, h)[0]
         for g, lo, hi in _ssm_segments(cfg):
             if g is not None:
                 x, _, _ = _shared_attn_block(cfg, params["shared_attn"], x,
                                              positions, win)
             for i in range(lo, hi):
-                x, _ = _ssm_layer(cfg, params, i, x)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return lm_head_apply(cfg, params, x), {}
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = A.qkv_project(lp["attn"], h, positions, cfg.attn,
-                                cfg.norm_eps)
-        a = A.flash_attention(q, k, v, causal=True, window=win)
-        x = x + a.reshape(B, T, -1) @ lp["attn"]["wo"]
-        x, aux = _ffn_block(cfg, lp, x, policy, spec_shape, capacity,
-                            capacity_factor, dispatch=dispatch)
-        auxs.append(aux)
+                x = run(ssm_layer, i, x)
+    else:
+        def layer(i, h):
+            lp = layer_params(params["layers"], i)
+            a = rms_norm(h, lp["attn_norm"], cfg.norm_eps)
+            q, k, v = A.qkv_project(lp["attn"], a, positions, cfg.attn,
+                                    cfg.norm_eps)
+            a = A.flash_attention(q, k, v, causal=True, window=win)
+            h = h + a.reshape(B, T, -1) @ lp["attn"]["wo"]
+            return _ffn_block(cfg, lp, h, policy, spec_shape, capacity,
+                              capacity_factor, dispatch=dispatch)
+        for i in range(cfg.num_layers):
+            x, aux = run(layer, i, x)
+            auxs.append(aux)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return lm_head_apply(cfg, params, x), stack_aux(auxs)
+    return x, stack_aux(auxs)
+
+
+def forward(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, **kw):
+    """Full-sequence forward (``_backbone``'s keywords). Returns (logits
+    over all positions, aux)."""
+    x, aux = _backbone(cfg, params, tokens, **kw)
+    return lm_head_apply(cfg, params, x), aux
+
+
+def _fused_head_ce(cfg: ArchConfig, params: Dict, x: torch.Tensor,
+                   targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Head projection and cross-entropy over sequence chunks of at most
+    ``chunk`` positions, each chunk under ``torch.utils.checkpoint``: the
+    (B, S, V) f32 logits never exist at once, forward or backward (a
+    chunk's are recomputed in the backward). x: (B, S, d); targets (B,
+    S). Returns the mean negative log-likelihood."""
+    B, Sx = x.shape[0], x.shape[1]
+    c = min(chunk, Sx)
+
+    def chunk_nll(xc, tc):
+        logits = lm_head_apply(cfg, params, xc).float()     # (B, c, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+        return (logz - gold).sum()
+
+    total = x.new_zeros((), dtype=torch.float32)
+    for lo in range(0, Sx, c):
+        total = total + checkpoint(chunk_nll, x[:, lo:lo + c],
+                                   targets[:, lo:lo + c], use_reentrant=False)
+    return total / max(B * Sx, 1)
+
+
+def loss_fn(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+            prefix_embeds: Optional[torch.Tensor] = None,
+            policy: XSharePolicy = OFF, remat: bool = True,
+            capacity_factor: float = 1.25, lb_weight: float = 0.02):
+    """Mean next-token cross-entropy through the fused chunked head, plus
+    lb_weight times the MoE load-balance auxiliary averaged over the
+    layers. tokens: (B, S). Returns (loss, aux)."""
+    x, aux = _backbone(cfg, params, tokens, prefix_embeds=prefix_embeds,
+                       policy=policy, remat=remat,
+                       capacity_factor=capacity_factor)
+    # the hidden state at position i predicts tokens[:, i + 1]
+    loss = _fused_head_ce(cfg, params, x[:, :-1], tokens[:, 1:])
+    if lb_weight and "lb_loss" in aux:
+        loss = loss + lb_weight * aux["lb_loss"].mean()
+    return loss, aux
 
 
 # ---------------------------------------------------------------- cache ---

@@ -722,6 +722,7 @@ class Scheduler:
             if st is not None:
                 self._finish(st, slot=slot, reason=reason)
 
+    @torch.no_grad()   # serving records no autograd graph, whoever calls
     def run(self, *, max_wall_s: Optional[float] = None,
             keep_alive: Optional[Callable[[], bool]] = None
             ) -> List[RequestState]:

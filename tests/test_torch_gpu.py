@@ -203,8 +203,9 @@ def _span(B, S, Hkv, dh, dtype, dev):
 # warp load, a row's 16-byte chunks on a power of two of lanes (head dim
 # 80: 10 bf16 chunks on 16 lanes, 20 f32 chunks on 32)
 @pytest.mark.parametrize("dtype,steps", [
-    (torch.float32, {32: 64, 64: 32, 80: 16, 128: 16, 256: 16}),
-    (torch.bfloat16, {32: 128, 64: 64, 80: 32, 128: 32, 256: 16})])
+    (torch.float32, {16: 128, 32: 64, 64: 32, 80: 16, 128: 16, 256: 16}),
+    (torch.bfloat16, {16: 256, 32: 128, 64: 64, 80: 32, 128: 32,
+                      256: 16})])
 def test_decode_attention_block_step(cuda, dtype, steps):
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attn import _HEAD_DIMS, block_step
@@ -319,7 +320,7 @@ def _cached_check(dev, g, dtype, T, H, Hkv, dh, window):
     check(out, ref, dtype)
 
 
-@pytest.mark.parametrize("dh", [32, 64, 80, 128, 256])
+@pytest.mark.parametrize("dh", [16, 32, 64, 80, 128, 256])
 @pytest.mark.parametrize("rep", [1, 2, 4, 8])
 @pytest.mark.parametrize("T", [1, 2, 5, 8])
 def test_decode_attention_cached_kernel(cuda, T, rep, dh):
@@ -869,3 +870,154 @@ def test_graph_capture_of_a_host_sync_raises(cuda):
     with pytest.raises(RuntimeError):
         state.loop(0, lambda: (run, {}))
     assert int(torch.ones(3, device=cuda).sum()) == 3
+
+
+# ------------------------------------------------------------ training
+
+def _bwd_case(cuda, dtype, block_t, T=90, d=64, E=5, f=72, k=2, seed=0):
+    """A sorted plan over experts 0..3 of 5 (expert 4 gets no row) whose
+    buffer ends in invalid tiles, f = 72 not a multiple of the kernel's
+    64 columns, and a random output gradient on every row."""
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.argsort(torch.rand((T, E - 1), generator=g), 1)[:, :k]
+    w = torch.full((T, k), 0.5)
+    plan = dispatch_plan(idx.to(cuda), w.to(cuda), E, block_t=block_t)
+    xs = gather_tokens(rand(g, (T, d), dtype).to(cuda), plan)
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.1).to(cuda) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.1).to(cuda)
+    dys = rand(g, tuple(xs.shape), dtype).to(cuda)
+    assert (plan.tile_valid == 0).any()
+    assert 4 not in plan.tile_eid[plan.tile_valid > 0].tolist()
+    return (xs, w1, w3, w2, plan.tile_eid, plan.tile_valid, dys), plan
+
+
+def _rel_close(out, ref, tol):
+    """max |out - ref| within tol of ref's largest magnitude."""
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol * max(float(ref.float().abs().max()), 1e-30), err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_t", [8, 128])
+def test_grouped_ffn_bwd_kernel(cuda, dtype, block_t):
+    """The backward kernel against its plain version: every gradient
+    within TOL of its largest magnitude, exact zeros for the expert with
+    no rows and for invalid tiles' rows, and two calls bit-equal."""
+    from repro_torch import kernels as K
+    args, plan = _bwd_case(cuda, dtype, block_t)
+    before = K.grouped_ffn_bwd.launches
+    out = K.grouped_ffn_bwd(*args, block_t=block_t)
+    assert K.grouped_ffn_bwd.launches == before + 1
+    ref = K.grouped_ffn_bwd_plain(*args, block_t=block_t)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        _rel_close(o, r, TOL[dtype])
+    assert float(out[1][4].abs().max()) == 0.0
+    assert float(out[2][4].abs().max()) == 0.0
+    assert float(out[3][4].abs().max()) == 0.0
+    rows = (plan.tile_valid == 0).repeat_interleave(block_t)
+    assert float(out[0][rows].abs().max()) == 0.0
+    again = K.grouped_ffn_bwd(*args, block_t=block_t)
+    for o, a in zip(out, again):
+        assert torch.equal(o, a)
+    n, per_kernel = _chip_smoke().cuda_kernels_of(
+        lambda: K.grouped_ffn_bwd(*args, block_t=block_t))
+    assert n == 3, per_kernel
+
+
+def test_grouped_ffn_autograd_runs_the_backward_kernel(cuda):
+    from repro_torch import kernels as K
+    (xs, w1, w3, w2, eid, valid, dys), _ = _bwd_case(cuda, torch.float32,
+                                                     16)
+    leaves = [t.clone().requires_grad_(True) for t in (xs, w1, w3, w2)]
+    before = K.grouped_ffn_bwd.launches
+    ys = K.grouped_ffn(*leaves, eid, valid, block_t=16)
+    got = torch.autograd.grad(ys, leaves, dys)
+    assert K.grouped_ffn_bwd.launches == before + 1
+    want = K.grouped_ffn_bwd(xs, w1, w3, w2, eid, valid, dys, block_t=16)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_kernels_without_a_backward_refuse_gradients(cuda):
+    """moe_ffn, decode_attention (both entry points) and ssd_scan raise
+    on the card when autograd would record them; under no_grad, and on
+    the CPU, they run."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(3)
+    x = rand(g, (4, 64), torch.float32).to(cuda).requires_grad_(True)
+    w1, w3 = (rand(g, (2, 64, 64), torch.float32, 0.1).to(cuda)
+              for _ in range(2))
+    w2 = rand(g, (2, 64, 64), torch.float32, 0.1).to(cuda)
+    comb = torch.full((4, 2), 0.5, device=cuda)
+    act = torch.ones(2, dtype=torch.bool, device=cuda)
+    q = rand(g, (2, 4, 32), torch.float32).to(cuda).requires_grad_(True)
+    kv = rand(g, (2, 16, 2, 32), torch.float32).to(cuda)
+    lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
+    xs = rand(g, (1, 40, 2, 64), torch.float32).to(cuda).requires_grad_(True)
+    dt = torch.rand((1, 40, 2), generator=g).to(cuda)
+    bc = rand(g, (1, 40, 1, 64), torch.float32).to(cuda)
+    calls = {
+        "moe_ffn": lambda: K.moe_ffn(x, w1, w3, w2, comb, act,
+                                     max_active=2),
+        "decode_attention": lambda: K.decode_attention(q, kv, kv, lens),
+        "decode_attention ": lambda: K.decode_attention_cached(
+            q[:, None], kv, kv, lens),
+        "ssd_scan": lambda: K.ssd_scan(xs, dt, -torch.ones(2, device=cuda),
+                                       bc, bc, chunk=16),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name.strip()}.*no "
+                                               f"backward"):
+            call()
+        with torch.no_grad():
+            call()
+    out = K.moe_ffn_plain(x.detach().cpu().requires_grad_(True),
+                          w1.cpu(), w3.cpu(), w2.cpu(), comb.cpu(),
+                          act.cpu())
+    assert out.grad_fn is not None
+
+
+@pytest.mark.parametrize("T", [1, 4])
+def test_decode_attention_head_dim_16(cuda, T):
+    """The trained speculation's target and draft (head dim 16): 8 rows,
+    4 / 2 heads, a decode step (T = 1) and a verify pass (T = 4), f32."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(16 + T)
+    args = _cached_case(g, cuda, torch.float32, 8, T, 4, 2, 16, 75,
+                        [16 + 5 * b for b in range(8)])
+    out = K.decode_attention_cached(*args)
+    check(out, K.decode_attention_cached_plain(*args), torch.float32)
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """One make_train_step of a 2-layer MoE (4 x 24 tokens: the sorted
+    dispatch, so grouped_ffn and its backward kernel) on the card and on
+    the CPU from the same params: the loss within 2e-5, every updated
+    leaf within 1e-4 of its largest magnitude."""
+    from repro_torch import kernels as K
+    from repro_torch.bridge import flatten, init_params
+    from repro_torch.configs.base import ArchConfig, AttnConfig, MoEConfig
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import params_to
+    from repro_torch.optim import adamw_init
+    cfg = ArchConfig(name="tiny-moe", family="moe", num_layers=2,
+                     d_model=64, d_ff=0, vocab_size=128,
+                     attn=AttnConfig(num_heads=4, num_kv_heads=2,
+                                     head_dim=16),
+                     moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = np.random.default_rng(0).integers(0, 128, (4, 24))
+    step = make_train_step(cfg)
+    outs = {}
+    for dev in ("cpu", cuda):
+        p = params_to(params, dev)
+        before = K.grouped_ffn_bwd.launches
+        outs[str(dev)] = step(p, adamw_init(p), toks)
+        if dev is cuda:   # one backward per MoE layer
+            assert K.grouped_ffn_bwd.launches - before == cfg.num_layers
+    (pc, _, mc), (pg, _, mg) = outs["cpu"], outs[str(cuda)]
+    assert abs(float(mc["loss"]) - float(mg["loss"])) <= 2e-5
+    for key, want in flatten(pc).items():
+        _rel_close(flatten(pg)[key].cpu(), want, 1e-4)

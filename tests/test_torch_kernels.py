@@ -339,6 +339,8 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
               torch.ones(2, dtype=torch.bool), max_active=2)
     K.grouped_ffn(x, w1, w3, w2, torch.zeros(1, dtype=torch.int32),
                   torch.ones(1, dtype=torch.int32), block_t=4)
+    K.grouped_ffn_bwd(x, w1, w3, w2, torch.zeros(1, dtype=torch.int32),
+                      torch.ones(1, dtype=torch.int32), x, block_t=4)
     q = torch.zeros((1, 2, 32))
     kv = torch.zeros((1, 8, 1, 32))
     K.decode_attention(q, kv, kv, torch.tensor([3]))
@@ -346,7 +348,8 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
     bc = torch.zeros((1, 8, 1, 16))
     K.ssd_scan(xs, torch.ones((1, 8, 2)), -torch.ones(2), bc, bc, chunk=4)
     assert K.launch_counts() == {"grouped_ffn": 0, "moe_ffn": 0,
-                                 "decode_attention": 0, "ssd_scan": 0}
+                                 "decode_attention": 0, "ssd_scan": 0,
+                                 "grouped_ffn_bwd": 0}
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
