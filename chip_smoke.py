@@ -125,6 +125,29 @@ each prints its wall time):
                 borrows the crashed one's graph). Prints survival,
                 chaos / fault-free tokens/s, recovery wall time (to the
                 first fresh token), durable and replayed tokens.
+  8b. ep        expert parallelism. (a) granite-moe at full width,
+                bf16, 8 x 128 prompts, 32 new, served by
+                Engine(dispatch="ep") under an 8-shard EPExecutor (4
+                experts a shard): policy off on the contiguous placement,
+                Algorithm 6 (k0 1, m_g 2, 8 groups) on plan_placement from
+                the prompts' gate histogram, and the same with the
+                hottest expert replicated twice and update_placement
+                between two generate calls; tokens equal
+                dispatch="sorted"'s and the EP lockstep run's, exact
+                launches (grouped_ffn once per MoE layer call, no
+                moe_ffn), one layer of an eager decode step bit-equal to
+                sorted_expert_ffn, the update's tables and version read
+                by the next call; tokens/s cold and warm for ep, sorted
+                and auto, a replayed decode step's wall and device time,
+                EPStats over one decode step's 24 layers. (b) the
+                executor alone at one MoE layer of deepseek-r1-proxy's
+                routed experts (E 256, top-8, d 7168, f 2048, bf16),
+                benchmarks/table2_ep.py's methods off / alg6 / alg6_rep
+                at 16 tokens and 16 x (1 + 3), 8 steps each: every y
+                bit-equal to sorted_expert_ffn(block_t=8), counts
+                consistent, peak-row ratios, the EP layer's and the
+                sorted path's times, and each shard's own tiles timed as
+                a grouped_ffn call alone (the slowest shard's time).
   9. train      (a) granite-moe cut to 2 layers, f32, 4 x 64 synthetic
                 tokens, on the CPU (plain versions) and on the card
                 (grouped_ffn and grouped_ffn_bwd): every gradient leaf
@@ -1676,6 +1699,493 @@ def durability_phase(cfg, params, prompts, plain_tokens, *, new=32,
     return out
 
 
+# ------------------------------------------------------------ EP phases ---
+
+EP_SHARDS = 8          # the paper's and BENCH_ep.json's G = 8
+DS = "deepseek-r1-proxy"
+# benchmarks/table2_ep.py's measured setting: block_t, the verify shape's
+# L_s, hot-expert replication
+EP_BLOCK_T, EP_SPEC_LS, EP_REPLICATE_HOT, EP_MAX_REPLICAS = 8, 3, 1, 2
+
+
+class RecordingEP:
+    """Stands in for an EPExecutor under ep_context: records each MoE
+    layer call's inputs and answers with the executor's ffn."""
+
+    def __init__(self, ex):
+        self.ex, self.calls = ex, []
+
+    def ffn(self, *args):
+        self.calls.append(args)
+        return self.ex.ffn(*args)
+
+
+def ep_block_t(ex, T: int, k: int) -> int:
+    """The block_t ``ex.ffn`` uses on T tokens of top-k (max_rows None:
+    the worst case M = T / S · k)."""
+    from repro_torch.models.dispatch import default_block_t
+    S = ex.placement.num_shards
+    return ex.block_t or default_block_t(S * (-(-T // S) * k),
+                                         ex.placement.expert_cap)
+
+
+def ep_layer_stats(cfg, params, prompts, ex, pol, *, cache_len: int):
+    """EPStats of ``ex`` on the routing of one eager decode step's MoE
+    layers (recorded under ep_context), with one layer's EP output held
+    bit-equal to sorted_expert_ffn at the executor's block_t (and
+    compared at the sorted path's own), and the EP prefill layer's
+    grouped_ffn call held against its plain version at TOL."""
+    from repro_torch import ep as EP
+    from repro_torch.kernels import grouped_ffn
+    from repro_torch.models.dispatch import default_block_t, sorted_expert_ffn
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serving.sampler import greedy
+
+    toks = torch.as_tensor(prompts, device=CUDA)
+    pre = RecordingEP(ex)
+    with EP.ep_context(pre):
+        lg, cache, _ = prefill(cfg, params, toks, cache_len=cache_len,
+                               capacity_factor=8.0, dispatch="ep")
+    # the prefill's layer at each path's own block_t (EP's from S·M and
+    # expert_cap, sorted's from T·k and E): reported, not a gate
+    x, _, _, _, idx, _ = pre.calls[0]
+    prefill_bt = (ep_block_t(ex, x.shape[0], idx.shape[1]),
+                  default_block_t(x.shape[0] * idx.shape[1], ex.placement
+                                  .num_experts))
+    prefill_same = torch.equal(ex.ffn(*pre.calls[0]),
+                               sorted_expert_ffn(*pre.calls[0]))
+    # the EP prefill's grouped_ffn call (mostly invalid tiles, tile_eid
+    # in placement order) against its plain version: a gate
+    xs, plan, _ = ep_grouped_call(ex, pre.calls[0])
+    bt_p = plan.block_t
+    _, w1, w3, w2, _, _ = pre.calls[0]
+    prefill_kernel = grouped_gate(
+        f"ep {cfg.name} prefill layer 0",
+        grouped_ffn(xs, w1, w3, w2, plan.tile_eid, plan.tile_valid,
+                    block_t=bt_p),
+        grouped_plain(xs, w1, w3, w2, plan.tile_eid, plan.tile_valid,
+                      block_t=bt_p), plan.tile_valid, bt_p)
+    prefill_kernel.update(block_t=bt_p)
+    del xs, plan
+    rec = RecordingEP(ex)
+    with EP.ep_context(rec):
+        decode_step(cfg, params, greedy(lg)[:, None], cache, policy=pol,
+                    capacity_factor=8.0, dispatch="ep")
+    if len(rec.calls) != cfg.num_layers:
+        fail(f"ep: a decode step made {len(rec.calls)} EP layer calls, "
+             f"want {cfg.num_layers}")
+    x, w1, w3, w2, idx, w = rec.calls[0]
+    bt = ep_block_t(ex, x.shape[0], idx.shape[1])
+    y = ex.ffn(*rec.calls[0])
+    if not torch.equal(y, sorted_expert_ffn(*rec.calls[0], block_t=bt)):
+        fail(f"ep: layer 0's EP output != sorted_expert_ffn at block_t "
+             f"{bt}")
+    same_default = torch.equal(y, sorted_expert_ffn(*rec.calls[0]))
+    peaks, rows, a2a, active = [], [], [], []
+    for call in rec.calls:
+        _, st = ex(*call)
+        peaks.append(st.peak_tile_rows)
+        rows.append(st.peak_rows)
+        a2a.append(st.total_a2a_bytes)
+        i, g = call[4], call[5]
+        active.append(int(torch.unique(i[(i >= 0) & (g != 0)]).numel()))
+    return dict(peak_tile_rows=float(np.mean(peaks)),
+                peak_computed_rows=float(np.mean(rows)),
+                a2a_bytes=float(np.mean(a2a)),
+                activated_experts=float(np.mean(active)),
+                layer_bit_equal_sorted_block_t=bt,
+                layer_bit_equal_at_sorted_default_block_t=same_default,
+                prefill_block_t_ep_sorted=prefill_bt,
+                prefill_layer_bit_equal_at_defaults=prefill_same,
+                prefill_layer_grouped_ffn_vs_plain=prefill_kernel)
+
+
+def replayed_step_ms(eng, steps: int):
+    """Wall (host clock, median of 5) and device time (CUDA events;
+    torch.profiler's busy time) of a decode step replayed from the
+    captured loop of the engine's newest running batch, on the state its
+    last generate left."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.step import NO_FAULT
+    state = eng.loops.states()[-1]
+    loop = state.loops[0]
+    rem = np.full(state.tensors["tok"].shape[0], 1000, np.int32)
+    walls, events = [], []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a.record()
+        loop(remaining=rem, fault=NO_FAULT)
+        b.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        events.append(a.elapsed_time(b))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loop(remaining=rem, fault=NO_FAULT)
+        torch.cuda.synchronize()
+    kern = cuda_kernels(prof)
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    return dict(wall_ms=float(np.median(walls)) * 1e3 / steps,
+                events_ms=float(np.median(events)) / steps,
+                device_busy_ms=busy if kern else "not measured",
+                kernels_per_step=sum(e.count for e in kern) / steps
+                if kern else "not measured")
+
+
+def ep_serve_phase(cfg, params, prompts, *, new=32, cache_len=512):
+    """Engine(dispatch="ep") under an 8-shard EPExecutor at full width,
+    three settings: policy off on the contiguous placement; Algorithm 6
+    on plan_placement from the prompts' gate histogram; the same with
+    the hottest expert replicated twice and update_placement between two
+    generate calls. Gates: tokens equal dispatch="sorted"'s under the
+    same policy and the EP lockstep run's; exact launches (grouped_ffn
+    once per MoE layer call, no moe_ffn); one layer bit-equal to
+    sorted_expert_ffn; after the update, the next call's tokens, the
+    executor's device tables and placement.version are the new ones."""
+    from repro_torch import ep as EP
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving import Engine
+    from repro_torch.serving.step import gate_probe
+
+    E, L, S = cfg.moe.num_experts, cfg.num_layers, EP_SHARDS
+    B = prompts.shape[0]
+    hist = gate_probe(cfg, params, torch.as_tensor(prompts, device=CUDA)) \
+        .cpu().numpy().astype(np.float64)
+    alg6 = XSharePolicy(mode="ep", k0=1, m_g=2, num_groups=S)
+    rep = dict(replicate_hot=EP_REPLICATE_HOT, max_replicas=EP_MAX_REPLICAS)
+    settings = {
+        "off": (OFF, EP.EPExecutor(S, EP.contiguous_placement(E, S),
+                                   device=CUDA)),
+        "alg6": (alg6, EP.EPExecutor(S, EP.plan_placement(hist, S),
+                                     device=CUDA)),
+        "alg6_rep": (alg6, EP.EPExecutor(
+            S, EP.plan_placement(hist, S, **rep), device=CUDA, **rep)),
+    }
+
+    def timed(eng):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        toks, st = eng.generate(prompts, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return toks, st, wall, K.launch_counts()
+
+    def expect(eng):
+        steps = -(-(new - 1) // eng.decode_chunk) * eng.decode_chunk
+        return {"grouped_ffn": L * (1 + steps), "moe_ffn": 0,
+                "decode_attention": L * steps, "ssd_scan": 0,
+                "grouped_ffn_bwd": 0}
+
+    out = {}
+    for name, (pol, ex) in settings.items():
+        res = {"placement_expert_cap": ex.placement.expert_cap,
+               "replication_factor": ex.placement.replication_factor}
+        tps = {}
+        ref = None
+        for dispatch in ("sorted", "auto"):
+            eng = Engine(cfg, params, policy=pol, dispatch=dispatch,
+                         cache_len=cache_len, device=CUDA)
+            for temp in ("cold", "warm"):
+                toks, _, wall, _ = timed(eng)
+                tps[f"{dispatch} {temp}"] = B * new / wall
+            if dispatch == "sorted":
+                ref = toks
+            else:
+                res["auto_tokens_equal_sorted"] = bool(
+                    np.array_equal(toks, ref))
+            del eng
+        eng = Engine(cfg, params, policy=pol, dispatch="ep",
+                     cache_len=cache_len, device=CUDA)
+        with EP.ep_context(ex):
+            lock, _ = eng.generate(prompts, new, lockstep=True)
+            runs = [timed(eng) for _ in ("cold", "warm")]
+        for (toks, st, wall, counts), temp in zip(runs, ("cold", "warm")):
+            tps[f"ep {temp}"] = B * new / wall
+            if not (np.array_equal(toks, ref) and np.array_equal(lock, ref)):
+                fail(f"ep {name} ({temp}): tokens != dispatch='sorted''s "
+                     f"or the EP lockstep run's")
+            wrong = {n: (counts[n], v) for n, v in expect(eng).items()
+                     if counts[n] != v}
+            if wrong:
+                fail(f"ep {name} ({temp}): launches (counted, expected) "
+                     f"{wrong}")
+        if runs[1][1].capture_s != 0.0:
+            fail(f"ep {name}: the warm run captured again")
+        res.update(tokens_per_s=tps, launches=runs[0][3],
+                   capture_s=runs[0][1].capture_s,
+                   activated_experts_served=runs[0][1].mean_aux(
+                       "activated_experts"))
+        if name == "alg6_rep":
+            # a load in which the prompts' coldest expert turns hottest:
+            # the planner replicates it, and hysteresis lets it through
+            load = hist.copy()
+            load[int(np.argmin(hist))] += hist.sum()
+            v0, shape0 = ex.placement.version, ex.graph_key()[1:]
+            if not ex.update_placement(load):
+                fail("ep alg6_rep: update_placement kept the placement")
+            with EP.ep_context(ex):
+                toks, st, wall, counts = timed(eng)
+            new_pl = ex.placement
+            tabs_ok = all(np.array_equal(
+                ex.tables[n].cpu().numpy(), a) for n, a in (
+                ("hosts", new_pl.hosts), ("nhosts", new_pl.nhosts),
+                ("local_slot", new_pl.local_slot),
+                ("local_eids", np.clip(new_pl.local_eids, 0, E - 1))))
+            if new_pl.version != v0 + 1 or not tabs_ok or \
+                    not np.array_equal(toks, ref):
+                fail(f"ep alg6_rep after update_placement: version "
+                     f"{new_pl.version} (was {v0}), tables current "
+                     f"{tabs_ok}, tokens equal sorted "
+                     f"{np.array_equal(toks, ref)}")
+            in_place = ex.graph_key()[1:] == shape0
+            if in_place != (st.capture_s == 0.0):
+                fail(f"ep alg6_rep: table shape kept {in_place} but "
+                     f"capture {st.capture_s} s")
+            res["update"] = dict(
+                version=new_pl.version, in_place=in_place,
+                capture_s=st.capture_s, tokens_per_s=B * new / wall,
+                expert_cap=new_pl.expert_cap,
+                replication_factor=new_pl.replication_factor)
+            res["launches_after_update"] = counts
+        res["replayed_step"] = replayed_step_ms(eng, eng.decode_chunk)
+        del eng
+        res["layer_stats"] = ep_layer_stats(cfg, params, prompts, ex, pol,
+                                            cache_len=cache_len)
+        res["card"] = gpu_name_power()
+        out[name] = res
+        log(f"ep {cfg.name} {name}: {json.dumps(res)}")
+    return out
+
+
+def ep_grouped_call(ex, args):
+    """The one grouped_ffn call of the EP layer call ``ex(*args)``: its
+    rows xs, its plan, and each shard's tile span [t0, t1). The plan's
+    tiles follow the (shard, slot) groups, so shard s's tiles are those
+    of groups s·cap .. (s+1)·cap - 1, every one valid."""
+    _, _, plan, xs, _ = ex._run(*args, None, sync=True)
+    S, cap = ex.placement.num_shards, ex.placement.expert_cap
+    bt = plan.block_t
+    tiles = ((plan.counts.long() + bt - 1) // bt).reshape(S, cap).sum(1)
+    end = tiles.cumsum(0).tolist()
+    spans = [(e - n, e) for e, n in zip(end, tiles.tolist())]
+    return xs, plan, spans
+
+
+def grouped_plain(xs, w1, w3, w2, tile_eid, tile_valid, *, block_t: int,
+                  chunk: int = 16):
+    """grouped_ffn_plain on the same inputs, over the valid tiles (an
+    invalid tile's rows are zero by its definition), ``chunk`` tiles at
+    a time with only their own experts' weights passed in: the plain
+    version upcasts every expert it is given to f32, 45 GB at
+    DeepSeek-R1's widths."""
+    from repro_torch.kernels import grouped_ffn_plain
+    d = xs.shape[1]
+    ref = torch.zeros_like(xs).view(-1, block_t, d)
+    xt = xs.view(-1, block_t, d)
+    for c in torch.nonzero(tile_valid).flatten().split(chunk):
+        u, inv = torch.unique(tile_eid[c].long(), return_inverse=True)
+        ref[c] = grouped_ffn_plain(
+            xt[c].reshape(-1, d), w1[u], w3[u], w2[u], inv, tile_valid[c],
+            block_t=block_t).view(-1, block_t, d)
+    return ref.view(-1, d)
+
+
+def grouped_gate(label, ys, ref, tile_valid, block_t: int) -> dict:
+    """Gate: the kernel's rows within TOL of the plain version's. Returns
+    the max abs error beside the reference's rms over the valid tiles'
+    rows."""
+    dtype = ys.dtype
+    live = ref.view(-1, block_t, ref.shape[1])[tile_valid != 0].float()
+    res = dict(max_abs_err=max_err(ys, ref), ref_rms=float(
+        live.pow(2).mean().sqrt()) if live.numel() else 0.0,
+        tol=TOL[dtype], tiles=int(tile_valid.sum()),
+        rows=ys.shape[0])
+    if not close(ys, ref, dtype):
+        fail(f"{label}: grouped_ffn vs grouped_ffn_plain {res}")
+    return res
+
+
+def ep_layer_phase(cfg, *, steps: int = 8, seed: int = 0):
+    """The EP executor alone at one MoE layer of the paper's EP model's
+    routed experts (E 256, top-8, d 7168, f 2048, bf16: 22.5 GB), with
+    benchmarks/table2_ep.py's methods (off: top-8 on the contiguous
+    placement; alg6: Algorithm 6, k0 1, m_g 5, on plan_placement from
+    step 0's histogram, update_placement between steps; alg6_rep: the
+    same with the hottest expert replicated twice) at the decode shape
+    (16 tokens) and the verify shape (16 x (1 + 3)), ``steps`` steps
+    each. Routing is a random router (seeded) over random rows. Gates:
+    every step's y bit-equal to sorted_expert_ffn(block_t=8);
+    exchange_counts == count_matrix; count_matrix.sum() == live pairs;
+    one grouped_ffn launch per EP layer call; a CPU tensor raises; at
+    the last step, the EP call's grouped_ffn (3.76e9-element weights,
+    tile_eid in placement order, replicas) and each shard's own tiles
+    launched alone within TOL of grouped_ffn_plain."""
+    from repro_torch import ep as EP
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.kernels import grouped_ffn
+    from repro_torch.models.dispatch import sorted_expert_ffn
+    from repro_torch.models.moe import OFF, route
+
+    m = cfg.moe
+    E, k, d, f = m.num_experts, m.top_k, cfg.d_model, m.d_ff_expert
+    S, bt = EP_SHARDS, EP_BLOCK_T
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(seed)
+
+    def draw(shape, scale):
+        return torch.randn(shape, generator=g, device=CUDA,
+                           dtype=torch.bfloat16).mul_(scale)
+    w1, w3 = draw((E, d, f), d ** -0.5), draw((E, d, f), d ** -0.5)
+    w2 = draw((E, f, d), f ** -0.5)
+    p = {"wg": draw((d, E), d ** -0.5)}
+    wbytes = 3 * E * d * f * 2
+    alg6 = XSharePolicy(mode="ep", k0=1, m_g=5, num_groups=S)
+    rep = dict(replicate_hot=EP_REPLICATE_HOT, max_replicas=EP_MAX_REPLICAS)
+    out = {"expert_weight_gb": wbytes / 1e9}
+    launches = {n: 0 for n in K.KERNELS}
+    for shape, T in (("dec", 16), ("spec", 16 * (1 + EP_SPEC_LS))):
+        xs, routes, hist = [], {"off": [], "x": []}, []
+        for _ in range(steps):
+            x = draw((T, d), 1.0)
+            xs.append(x)
+            for side, pol in (("off", OFF), ("x", alg6)):
+                idx, w, _, _ = route(p, x, m, pol)
+                routes[side].append((idx, w))
+            idx, w = routes["x"][-1]
+            counts = torch.zeros(E, dtype=torch.float64, device=CUDA)
+            counts.index_add_(0, idx.reshape(-1).clamp(min=0).long(),
+                              (w.reshape(-1) != 0).double())
+            hist.append(counts.cpu().numpy())
+        execs = {
+            "off": EP.EPExecutor(S, EP.contiguous_placement(E, S),
+                                 device=CUDA, block_t=bt),
+            "alg6": EP.EPExecutor(S, EP.plan_placement(hist[0], S),
+                                  device=CUDA, block_t=bt),
+            "alg6_rep": EP.EPExecutor(
+                S, EP.plan_placement(hist[0], S, **rep), device=CUDA,
+                block_t=bt, **rep)}
+        rec = {n: {"tile_peak": [], "row_peak": [], "a2a": []}
+               for n in execs}
+        for t in range(steps):
+            for name, ex in execs.items():
+                idx, w = routes["off" if name == "off" else "x"][t]
+                if name != "off" and t > 0:
+                    ex.update_placement(hist[t])
+                args = (xs[t], w1, w3, w2, idx, w)
+                K.reset_launch_counts()
+                y, st = ex(*args)
+                got = K.launch_counts()
+                for n, c in got.items():
+                    launches[n] += c
+                if got["grouped_ffn"] != 1:
+                    fail(f"ep {DS} {shape} {name}: {got['grouped_ffn']} "
+                         f"grouped_ffn launches in one EP layer call")
+                if not torch.equal(y, sorted_expert_ffn(*args, block_t=bt)):
+                    fail(f"ep {DS} {shape} {name} step {t}: y != "
+                         f"sorted_expert_ffn(block_t={bt})")
+                cm = EP.exchange_counts(idx, w, ex.placement)
+                live = int(((idx >= 0) & (w != 0)).sum())
+                if not np.array_equal(cm, st.count_matrix) or \
+                        int(st.count_matrix.sum()) != live:
+                    fail(f"ep {DS} {shape} {name} step {t}: counts "
+                         f"{cm.sum()} / {st.count_matrix.sum()}, live "
+                         f"{live}")
+                rec[name]["tile_peak"].append(st.peak_tile_rows)
+                rec[name]["row_peak"].append(st.peak_rows)
+                rec[name]["a2a"].append(st.total_a2a_bytes)
+        try:
+            execs["off"].ffn(xs[0].cpu(), w1, w3, w2, *routes["off"][0])
+            fail(f"ep {DS}: a CPU tensor reached the executor on the card")
+        except ValueError:
+            pass
+        res = {"tokens": T, "steps": steps, "per_method": rec,
+               "rebalances": execs["alg6_rep"].rebalances,
+               "rebalances_skipped": execs["alg6_rep"].rebalances_skipped,
+               "replication_factor":
+                   execs["alg6_rep"].placement.replication_factor}
+        res.update(ep_ratios(rec))
+        # times at the last step's routing and placements; the EP call's
+        # grouped_ffn (every shard's tiles, on the full weights) and each
+        # shard's own tiles launched alone, all held against the plain
+        # version
+        timing = {}
+        for name, ex in execs.items():
+            idx, w = routes["off" if name == "off" else "x"][-1]
+            args = (xs[-1], w1, w3, w2, idx, w)
+            rows, plan, spans = ep_grouped_call(ex, args)
+            eid, valid = plan.tile_eid, plan.tile_valid
+            ref = grouped_plain(rows, w1, w3, w2, eid, valid, block_t=bt)
+            label = f"ep {DS} {shape} {name}"
+            whole = grouped_gate(label, grouped_ffn(
+                rows, w1, w3, w2, eid, valid, block_t=bt), ref, valid, bt)
+            shards = []
+            for s, (t0, t1) in enumerate(spans):
+                if t0 == t1:
+                    shards.append(dict(shard=s, tile_rows=0, ms=0.0))
+                    continue
+                sx, se, sv = rows[t0 * bt:t1 * bt], eid[t0:t1], valid[t0:t1]
+                trows = (t1 - t0) * bt
+                occ = int(torch.unique(se).numel())
+                nbytes = 2 * trows * d * 2 + occ * 3 * d * f * 2
+                own = grouped_gate(f"{label} shard {s}", grouped_ffn(
+                    sx, w1, w3, w2, se, sv, block_t=bt),
+                    ref[t0 * bt:t1 * bt], sv, bt)
+                shards.append(dict(
+                    shard=s, tile_rows=trows, experts=occ,
+                    max_expert=int(se.max()),
+                    max_abs_err=own["max_abs_err"], ref_rms=own["ref_rms"],
+                    ms=time_ms(lambda: grouped_ffn(
+                        sx, w1, w3, w2, se, sv, block_t=bt)),
+                    bound_ms=bound_ms(nbytes, 6.0 * trows * d * f,
+                                      torch.bfloat16)[0]))
+            del rows, ref
+            slow = max(shards, key=lambda c: c["ms"])
+            timing[name] = dict(
+                ep_layer_ms=time_ms(lambda: ex.ffn(*args), iters=10),
+                sorted_ms=time_ms(lambda: sorted_expert_ffn(
+                    *args, block_t=bt), iters=10),
+                slowest_shard_ms=slow["ms"], slowest_shard=slow["shard"],
+                slowest_shard_bound_ms=slow.get("bound_ms", 0.0),
+                grouped_ffn_vs_plain=whole, shards=shards)
+        for name in ("alg6", "alg6_rep"):
+            timing[f"slowest_shard_ratio_off_over_{name}"] = \
+                timing["off"]["slowest_shard_ms"] / \
+                max(timing[name]["slowest_shard_ms"], 1e-9)
+        res["timing"] = timing
+        res["card"] = gpu_name_power()
+        out[shape] = res
+        log(f"ep {DS} layer {shape}: {json.dumps(res)}")
+    out["launches"] = launches
+    del w1, w3, w2
+    return out
+
+
+def ep_ratios(rec) -> dict:
+    """benchmarks/table2_ep.py's _ratios: peak tile rows and peak real
+    rows of off over each Algorithm 6 method, mean over steps."""
+    off_t = np.asarray(rec["off"]["tile_peak"], float)
+    off_r = np.asarray(rec["off"]["row_peak"], float)
+    res = {}
+    for m in ("alg6", "alg6_rep"):
+        mt = np.maximum(np.asarray(rec[m]["tile_peak"], float), 1.0)
+        res[f"peak_rows_ratio_{m}"] = float((off_t / mt).mean())
+        res[f"peak_rows_ratio_{m}_min"] = float((off_t / mt).min())
+        res[f"peak_real_rows_ratio_{m}"] = float(
+            (off_r / np.maximum(np.asarray(rec[m]["row_peak"], float),
+                                1.0)).mean())
+    res["a2a_bytes_baseline"] = int(np.mean(rec["off"]["a2a"]))
+    res["a2a_bytes_xshare"] = int(np.mean(rec["alg6_rep"]["a2a"]))
+    return res
+
+
 # -------------------------------------------------------- graph phase ---
 
 SPEC_OPS = ("remaining", "budget", "draft_len", "spec_on", "priors")
@@ -2527,8 +3037,19 @@ def main() -> int:
     with Phase(f"durability {ARCH}"):
         durability = durability_phase(cfg, params, prompts,
                                       plain_tokens["off"])
+    # expert parallelism: Engine(dispatch="ep") at full width, then the
+    # executor alone at the paper's EP model's expert widths
+    ep = {}
+    with Phase(f"ep {ARCH}"), torch.no_grad():
+        ep[ARCH] = ep_serve_phase(cfg, params, prompts)
+        results[f"{ARCH} ep"] = ep[ARCH]
     del params
     torch.cuda.empty_cache()
+    with Phase(f"ep {DS} layer"), torch.no_grad():
+        ep[f"{DS} layer"] = ep_layer_phase(ARCHS[DS])
+        results[f"{DS} ep layer"] = {
+            "layer calls": {"launches": ep[f"{DS} layer"]["launches"]}}
+        torch.cuda.empty_cache()
     for name in SSM_ARCHS:
         scfg = ARCHS[name]
         kernels = ("ssd_scan",) + (("decode_attention",)
@@ -2614,7 +3135,7 @@ def main() -> int:
                       "parity": parity, "spec_lossless": lossless,
                       "bf16_check": bf16_check, "profile": prof,
                       "graphs": graphs, "durability": durability,
-                      "train": train, "card": card}),
+                      "ep": ep, "train": train, "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,11 @@ Expert compute goes through the ``dispatch`` switch of expert_ffn:
            case as flat GEMMs over all E experts; the kernel computes the
            same function reading only the selected experts' weights.
   auto   — dense for decode-sized drop-free batches, sorted otherwise.
-  ep     — expert-parallel execution, not ported yet.
+  ep     — expert-parallel execution through the EPExecutor bound by
+           ``repro_torch.ep.ep_context`` (ep/executor.py): per-shard
+           sort, row exchange, one grouped FFN over every shard's local
+           experts, reverse exchange and combine. Bit-equal to "sorted";
+           with no executor bound it is "sorted".
 """
 from __future__ import annotations
 
@@ -144,7 +148,11 @@ def expert_ffn(p: Dict, x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
     if dispatch not in DISPATCH_MODES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
     if dispatch == "ep":
-        raise NotImplementedError("expert-parallel dispatch is not ported")
+        from repro_torch import ep as EP
+        ex = EP.current_executor()
+        if ex is not None:
+            return ex.ffn(x, p["w1"], p["w3"], p["w2"], idx, w).to(x.dtype)
+        dispatch = "sorted"                   # the single-device path
     G = 1
     if T > group_size:
         for cand in range(T // group_size, 0, -1):

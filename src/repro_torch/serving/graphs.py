@@ -13,16 +13,19 @@ costs the host one launch instead of thousands.
              admissions, evictions and scrubs into its tensors in place,
              so the addresses a graph holds stay valid.
   LoopPool   the states of one engine, by (kind, slots, cache length,
-             dtype, chunk or rounds). A state is lent to one live
-             scheduler at a time, so a second ``Engine.generate`` or a
-             ``recover()`` replays the graphs captured before; a second
-             live scheduler gets a state, and captures, of its own.
+             dtype, chunk or rounds) and the EP binding their loops read.
+             A state is lent to one live scheduler at a time, so a second
+             ``Engine.generate`` or a ``recover()`` replays the graphs
+             captured before; a second live scheduler gets a state, and
+             captures, of its own. A new binding's state replaces the old
+             one's once that is free.
   GraphLoop  one loop over one state, with static buffers for the
              per-round host operands, copied in before each replay. Its
              outputs are the captured ones, overwritten by the next
              replay, so a scheduler reads them first.
 
-Capture, on the card: the kernel library is loaded, one warm-up run on
+Capture, on the card, one at a time on one side stream per card: the
+kernel library is loaded, one warm-up run on
 clones of the state and of the generator loads the kernels' modules and
 sets up cuBLAS without touching the live state, then the loop is
 captured on the state's own tensors with capture_error_mode
@@ -38,6 +41,7 @@ loop as it is.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 import weakref
 from typing import Callable, Dict, List, Optional, Tuple
@@ -93,6 +97,21 @@ def _zero(tree: Dict) -> None:
             v.zero_()
 
 
+_SIDE: Dict[int, torch.cuda.Stream] = {}
+_CAPTURING = threading.Lock()     # captures share the stream: one at a time
+
+
+def _side_stream(dev) -> torch.cuda.Stream:
+    """The stream every capture on ``dev`` runs on: one per card, since
+    cuBLAS keeps a workspace for each stream it has run on for the life
+    of the process, so a stream per capture would hold one more
+    workspace of the card's memory with every capture."""
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SIDE:
+        _SIDE[i] = torch.cuda.Stream(i)
+    return _SIDE[i]
+
+
 class GraphLoop:
     """One loop ``run`` over a LoopState's tensors and generator,
     captured at construction on the card. ``inputs`` are its static
@@ -113,17 +132,18 @@ class GraphLoop:
     def _capture(self, dev) -> None:
         t0 = time.perf_counter()
         build.lib()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with launches_taken_back(), torch.cuda.stream(side):
-            self.run(_clone(self.tensors), _clone(self.gen),
-                     _clone(self.inputs))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.gen)
-        with launches_taken_back() as moved, torch.cuda.graph(
-                graph, stream=side, capture_error_mode="thread_local"):
-            self.out = self.run(self.tensors, self.gen, self.inputs)
+        with _CAPTURING:
+            side = _side_stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with launches_taken_back(), torch.cuda.stream(side):
+                self.run(_clone(self.tensors), _clone(self.gen),
+                         _clone(self.inputs))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(self.gen)
+            with launches_taken_back() as moved, torch.cuda.graph(
+                    graph, stream=side, capture_error_mode="thread_local"):
+                self.out = self.run(self.tensors, self.gen, self.inputs)
         self.graph, self.launches = graph, moved
         self.capture_s = time.perf_counter() - t0
 
@@ -176,13 +196,29 @@ class LoopPool:
 
     def __init__(self):
         self._states: Dict[tuple, List[LoopState]] = {}
+        self._dropped_capture_s = 0.0
 
-    def acquire(self, key: tuple, holder,
-                make: Callable[[], LoopState]) -> LoopState:
+    def acquire(self, key: tuple, holder, make: Callable[[], LoopState],
+                *, binding=None) -> LoopState:
         """A free state for ``key`` (one whose scheduler released it or
         no longer exists), its tensors zeroed as a fresh one's are, or a
-        new one from ``make()``; lent to ``holder``."""
-        states = self._states.setdefault(key, [])
+        new one from ``make()``; lent to ``holder``.
+
+        ``binding`` is what a captured loop reads besides the state's own
+        tensors (``repro_torch.ep.binding_key``: an EP executor and its
+        table shape). The free states of ``key`` under any other binding
+        are dropped, so a new binding takes the place of the old one's
+        running batch and graphs instead of adding to them."""
+        for full in [f for f in self._states
+                     if f[0] == key and f[1] != binding]:
+            kept = [s for s in self._states[full] if s.holder is not None]
+            self._dropped_capture_s += sum(
+                s.capture_s for s in self._states[full] if s.holder is None)
+            if kept:
+                self._states[full] = kept
+            else:
+                del self._states[full]
+        states = self._states.setdefault((key, binding), [])
         free = [s for s in states if s.holder is None]
         if free:
             state = free[0]
@@ -202,5 +238,7 @@ class LoopPool:
 
     @property
     def capture_s(self) -> float:
-        """Seconds spent capturing, summed over every loop."""
-        return sum(s.capture_s for s in self.states())
+        """Seconds spent capturing, summed over every loop (dropped
+        states' included)."""
+        return self._dropped_capture_s + sum(s.capture_s
+                                             for s in self.states())

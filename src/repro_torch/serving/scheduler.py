@@ -76,6 +76,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, MoEConfig, XSharePolicy
 from repro_torch.core.selection import rank_by_affinity
+from repro_torch.ep import binding_key
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import effective_window, init_cache, params_to
 from repro_torch.models.moe import OFF
@@ -258,7 +259,8 @@ class Scheduler:
         # device-side running-batch state, borrowed from the pool
         self._pool = loop_pool if loop_pool is not None else LoopPool()
         self._state: Optional[LoopState] = self._pool.acquire(
-            self._state_key(), self, self._new_state)
+            self._state_key(), self, self._new_state,
+            binding=binding_key(self._dispatch))
         self._gen = self._state.gen
         self._gen.manual_seed(seed)
         self._active = np.zeros(num_slots, bool)

@@ -163,8 +163,14 @@ def test_moe_apply_matches_jax(mode, kw):
 
 
 def test_ep_dispatch_is_not_ported():
-    tp, _ = moe_params(0, 8, 4, 8)
-    with pytest.raises(NotImplementedError):
-        TM.expert_ffn(tp, torch.zeros((2, 8)), torch.zeros((2, 1),
-                      dtype=torch.int32), torch.ones((2, 1)),
-                      MoEConfig(4, 1, 8), dispatch="ep")
+    """dispatch="ep" with no EPExecutor bound is the sorted path, bit for
+    bit, as in the JAX package (the name dates from when "ep" raised; the
+    executor itself is tests/test_torch_ep.py's)."""
+    T, d, E, k, f = 12, 8, 4, 2, 8
+    tp, _ = moe_params(0, d, E, f)
+    idx, w = routing(3, T, E, k, masked=2)
+    x = torch.tensor(np.random.default_rng(4).standard_normal((T, d)),
+                     dtype=torch.float32)
+    args = (tp, x, torch.tensor(idx), torch.tensor(w), MoEConfig(E, k, f))
+    assert torch.equal(TM.expert_ffn(*args, dispatch="ep"),
+                       TM.expert_ffn(*args, dispatch="sorted"))

@@ -1021,3 +1021,187 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
     assert abs(float(mc["loss"]) - float(mg["loss"])) <= 2e-5
     for key, want in flatten(pc).items():
         _rel_close(flatten(pg)[key].cpu(), want, 1e-4)
+
+
+# ------------------------------------------------- expert parallelism
+
+def _ep_case(g, dev, dtype, T, d, E, f, k):
+    """x, the three expert weights, top-k routing of T tokens."""
+    from repro_torch.core.routing import topk_route
+    x = rand(g, (T, d), dtype).to(dev)
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.05).to(dev) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.05).to(dev)
+    idx, w = topk_route(rand(g, (T, E), torch.float32).to(dev), k)
+    return x, w1, w3, w2, idx, w
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,E,f,k,S", [(8, 64, 16, 128, 2, 8),
+                                         (43, 96, 32, 64, 8, 8),
+                                         (300, 128, 12, 80, 2, 4)])
+@pytest.mark.parametrize("block_t", [8, None])
+def test_ep_layer_bit_equals_sorted(cuda, dtype, T, d, E, f, k, S,
+                                    block_t):
+    """The EP layer (one grouped_ffn launch over every shard's tiles, on
+    the layer's own weights) bit-equal to the sorted dispatch on the
+    card: at a shared block_t, and at each path's own default; under a
+    contiguous and a replicated placement."""
+    from repro_torch import ep as EP
+    from repro_torch import kernels as K
+    from repro_torch.models.dispatch import sorted_expert_ffn
+    g = torch.Generator().manual_seed(T + E)
+    args = _ep_case(g, cuda, dtype, T, d, E, f, k)
+    ref = sorted_expert_ffn(*args, block_t=block_t)
+    load = np.arange(E, dtype=np.float64) ** 2
+    for pl in (EP.contiguous_placement(E, S),
+               EP.plan_placement(load, S, replicate_hot=2, max_replicas=3)):
+        ex = EP.EPExecutor(S, pl, device=cuda, block_t=block_t)
+        before = K.grouped_ffn.launches
+        y = ex.ffn(*args)
+        assert K.grouped_ffn.launches == before + 1
+        assert torch.equal(y, ref)
+        y2, st = ex(*args)
+        assert torch.equal(y2, ref)
+        assert st.count_matrix.sum() == T * k
+
+
+def test_ep_ffn_captures_and_replays_new_tables(cuda):
+    """ffn captured in a CUDA graph replays equal to eager; after an
+    update_placement of the same table shape the same graph reads the new
+    tables and still equals eager (and the sorted dispatch)."""
+    from repro_torch import ep as EP
+    from repro_torch.models.dispatch import sorted_expert_ffn
+    g = torch.Generator().manual_seed(9)
+    E, S = 32, 8
+    args = _ep_case(g, cuda, torch.bfloat16, 8, 128, E, 64, 8)
+    rep = dict(replicate_hot=1, max_replicas=2)
+    ex = EP.EPExecutor(S, EP.plan_placement(np.ones(E), S, **rep),
+                       device=cuda, **rep)
+    ref = ex.ffn(*args)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        ex.ffn(*args)                                   # warm-up
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = ex.ffn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    shape = ex.graph_key()[1:]
+    load = np.ones(E)
+    load[5] = 3.0                  # expert 5 replicated in expert 0's place
+    assert ex.update_placement(load) and ex.graph_key()[1:] == shape
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ex.ffn(*args))
+    assert torch.equal(out, sorted_expert_ffn(*args))
+
+
+def test_ep_engine_on_the_card_equals_sorted(cuda):
+    """A 2-layer Engine(dispatch="ep") (16 experts over 8 shards, the
+    decode loop replayed from a graph) gives dispatch="sorted"'s tokens,
+    continuous and lockstep, with grouped_ffn once per MoE layer call and
+    no moe_ffn."""
+    from repro_torch import ep as EP
+    from repro_torch import kernels as K
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving import Engine
+    cfg = ARCHS["granite-moe-1b-a400m"].reduced(
+        num_layers=2, max_d_model=128, max_vocab=256, max_experts=16)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    prompts = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int32)
+    ref, _ = Engine(cfg, params, cache_len=64, dispatch="sorted",
+                    device=cuda).generate(prompts, 12)
+    eng = Engine(cfg, params, cache_len=64, dispatch="ep", device=cuda)
+    ex = EP.EPExecutor(8, EP.contiguous_placement(16, 8), device=cuda)
+    with EP.ep_context(ex):
+        lock, _ = eng.generate(prompts, 12, lockstep=True)
+        K.reset_launch_counts()
+        out, st = eng.generate(prompts, 12)
+        counts = K.launch_counts()
+    assert np.array_equal(out, ref) and np.array_equal(lock, ref)
+    steps = -(-11 // eng.decode_chunk) * eng.decode_chunk
+    assert counts["grouped_ffn"] == cfg.num_layers * (1 + steps)
+    assert counts["moe_ffn"] == 0
+    assert st.capture_s > 0
+
+
+def test_ep_spec_engine_on_the_card_equals_plain(cuda):
+    """Speculative decoding with the verify pass under dispatch="ep"
+    (self-draft, the spec round replayed from a graph): plain greedy's
+    tokens."""
+    from repro_torch import ep as EP
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving import Engine
+    cfg = ARCHS["granite-moe-1b-a400m"].reduced(
+        num_layers=2, max_d_model=128, max_vocab=256, max_experts=16)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    prompts = np.random.default_rng(6).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int32)
+    ref, _ = Engine(cfg, params, cache_len=64, device=cuda).generate(
+        prompts, 12)
+    eng = Engine(cfg, params, cache_len=64, dispatch="ep",
+                 draft=(cfg, params), spec_len=3, device=cuda)
+    with EP.ep_context(EP.EPExecutor(8, EP.contiguous_placement(16, 8),
+                                     device=cuda)):
+        out, st = eng.generate(prompts, 12)
+    assert np.array_equal(out, ref) and st.drafted > 0
+
+
+def test_ep_executor_on_the_card_refuses_cpu_tensors(cuda):
+    from repro_torch import ep as EP
+    g = torch.Generator().manual_seed(1)
+    x, w1, w3, w2, idx, w = _ep_case(g, cuda, torch.float32, 8, 64, 8, 64,
+                                     2)
+    ex = EP.EPExecutor(4, EP.contiguous_placement(8, 4), device=cuda)
+    with pytest.raises(ValueError, match="cpu"):
+        ex.ffn(x.cpu(), w1, w3, w2, idx, w)
+    with pytest.raises(ValueError, match="cpu"):
+        ex(x, w1, w3, w2, idx.cpu(), w)
+
+
+def test_ep_engine_new_table_shape_keeps_device_memory(cuda):
+    """After an update_placement that changes the table shape, the next
+    generate captures a running batch and graphs in place of the old
+    ones: the card holds what it held before, but for the new shape's
+    tables, and the tokens are still dispatch="sorted"'s."""
+    import gc
+
+    from repro_torch import ep as EP
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.serving import Engine
+    cfg = ARCHS["granite-moe-1b-a400m"].reduced(
+        num_layers=2, max_d_model=128, max_vocab=256, max_experts=16)
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=cuda)
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, size=(4, 16)).astype(np.int32)
+    ref, _ = Engine(cfg, params, cache_len=64, dispatch="sorted",
+                    device=cuda).generate(prompts, 12)
+    rep = dict(replicate_hot=1, max_replicas=2)
+    ex = EP.EPExecutor(8, EP.plan_placement(np.ones(16), 8, **rep),
+                       device=cuda, **rep)
+    eng = Engine(cfg, params, cache_len=64, dispatch="ep", device=cuda)
+
+    def held():
+        gc.collect()
+        torch.cuda.synchronize(cuda)
+        return torch.cuda.memory_allocated(cuda)
+    with EP.ep_context(ex):
+        eng.generate(prompts, 12)
+        before, shape = held(), ex.graph_key()[1:]
+        ex.replicate_hot, ex.max_replicas = 2, 4
+        assert ex.update_placement(np.arange(1, 17, dtype=float) ** 4)
+        assert ex.graph_key()[1:] != shape
+        out, st = eng.generate(prompts, 12)
+        after = held()
+    tables = sum(-(-t.numel() * t.element_size() // 512) * 512
+                 for t in ex.tables.values())
+    assert np.array_equal(out, ref) and st.capture_s > 0
+    assert len(eng.loops.states()) == 1
+    assert before <= after <= before + tables, (before, after, tables)
