@@ -49,9 +49,16 @@ each prints its wall time):
                 and bf16, each gradient within TOL of its largest
                 magnitude, two calls bit-equal, at most 3 CUDA kernels
                 per call, beside the torch._grouped_mm yardstick;
+                decode_attention also at the families phase's decode
+                shapes, T = 1, cur_len drawn per row over the served
+                lengths in a cache of 512: paligemma-3b (8 rows, 8 query
+                heads on 1 KV head of 256, cur_len 384-415) and
+                musicgen-large (8 rows, 32 / 32 heads of 64, 128-159);
   3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
                 shared-block application), prefill of 4 x 64 tokens
-                (granite-moe) or 4 x 300 (mamba2, zamba2) then 8 greedy
+                (granite-moe; paligemma-3b after 256 prefix embeddings;
+                musicgen-large: 64 frames of 4 codebooks) or 4 x 300
+                (mamba2, zamba2) then 8 greedy
                 decode steps, on the CPU (plain versions) and on the card
                 (kernels): tokens equal, logits close; and granite-moe's
                 speculative decoding (spec_len 3, 16 new; the self-draft
@@ -107,6 +114,23 @@ each prints its wall time):
                 off and Algorithm 4, exact launch counts of the three
                 kernels from the rounds each run reports, with tokens/s,
                 acceptance and activated experts printed;
+  7b. families  random weights from seed 0, bf16, every layer, one model
+                at a time: paligemma-3b (18 layers, tied vocabulary of
+                257 216), 8 requests of 256 N(0, 1) prefix embeddings +
+                128 prompt tokens, 32 new, cache 512, through
+                Engine.generate(prompts, 32, prefix_embeds=pe) (the
+                lockstep loop, as the JAX package serves a prefix),
+                twice: the first token is the argmax of forward(...,
+                prefix_embeds=pe) at the last position, decode_attention
+                launched exactly 18 x 31 times a call, both calls' tokens
+                equal, tokens/s and an eager decode step's wall;
+                musicgen-large (48 layers, 4 codebooks of 2048), 8
+                requests of 128 frames, 32 new, cache 512, as a main path
+                (cold and warm, continuous == lockstep, tokens (8, 32, 4),
+                48 decode_attention launches a decode step, new_tokens 8 x
+                32 x 4), a replayed step's wall and device time, then
+                with its 64 conditioning embeddings through the lockstep
+                loop: shape and launches;
   8. durability granite-moe through the crash-tolerant FrontDoor at full
                 width, bf16, 8 x 128 prompts, 32 new, 8 slots, journal
                 and snapshots every 2 rounds: (a) fault-free; (b) killed
@@ -178,6 +202,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -212,6 +237,10 @@ PARITY_LOGIT_TOL = 1e-3
 ARCH = "granite-moe-1b-a400m"
 SSM_ARCHS = ("mamba2-370m", "zamba2-1.2b")
 DANUBE = "h2o-danube-1.8b"
+VLM, AUDIO = "paligemma-3b", "musicgen-large"
+# the families phase's requests: paligemma's 256 image-patch embeddings
+# (its config's prefix_len), 128 prompt tokens (musicgen: frames), 32 new
+FAMILY_PREFIX, FAMILY_PROMPT, FAMILY_NEW = 256, 128, 32
 SSD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")   # the three passes of ssd_scan
 # every __global__ function of src/repro_torch/kernels/csrc (name prefixes)
@@ -331,6 +360,27 @@ def cuda_kernels_of(fn, calls: int = 3, tries: int = 5):
         us[e.key[:72]] = us.get(e.key[:72], 0.0) + \
             e.self_device_time_total / calls
     return -(-sum(e.count for e in kern) // calls), us
+
+
+def ptxas_report(build_log: str):
+    """Each compiled kernel's source, (mangled) name, registers and
+    spilled bytes (stores + loads) from nvcc's -Xptxas -v output, whose
+    sources the build log heads with "== name"."""
+    out, src, cur = [], "", None
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            src = line[3:].strip()
+        elif "Compiling entry function" in line:
+            cur = dict(source=src, function=line.split("'")[1],
+                       registers=None, spill_bytes=0)
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            cur["spill_bytes"] += sum(int(n) for n in re.findall(
+                r"(\d+) bytes spill", line))
+        elif cur is not None and "Used" in line and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+    return out
 
 
 def max_err(a, b) -> float:
@@ -478,7 +528,27 @@ def kernel_cases(archs):
         out[kernel] += cases
     out["decode_attention"] += danube_attention_cases(archs)
     out["decode_attention"] += bench_attention_cases()
+    out["decode_attention"] += family_attention_cases(archs)
     return out
+
+
+def family_attention_cases(archs):
+    """decode_attention at the decode shapes the families phase serves,
+    one query per row (T = 1), cur_len drawn per row over the served
+    lengths in a cache of 512: paligemma-3b's MQA (8 rows, 8 query heads
+    on 1 KV head of 256; 256 prefix embeddings + 128 prompt tokens, then
+    up to 32 new: 384-415) and musicgen-large's MHA (8 rows, 32 / 32
+    heads of 64; 128 frames, then up to 32: 128-159), in f32 and bf16.
+    Last and on their own generator."""
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(2560)
+    return [verify_attention_case(archs[name].attn, "served", dtype, g,
+                                  T=1, label=name, cache=(512, lo, hi))
+            for (name, lo, hi), dtype in itertools.product(
+                ((VLM, FAMILY_PREFIX + FAMILY_PROMPT,
+                  FAMILY_PREFIX + FAMILY_PROMPT + FAMILY_NEW - 1),
+                 (AUDIO, FAMILY_PROMPT, FAMILY_PROMPT + FAMILY_NEW - 1)),
+                (torch.float32, torch.bfloat16))]
 
 
 def bench_attention_cases():
@@ -910,22 +980,28 @@ def ssd_cases(archs):
 
 # ------------------------------------------------------ parity phase ---
 
-def path_parity(cfg, prompt_len: int, cache_len: int):
+def path_parity(cfg, prompt_len: int, cache_len: int, prefix_len: int = 0):
     """Same seeded weights, f32, 2 layers: CPU (plain versions) vs GPU
-    (kernels)."""
+    (kernels). Audio prompts are frames of the config's codebooks;
+    ``prefix_len`` N(0, 1) prefix embeddings go before the prompt."""
     from repro_torch.bridge import init_params
     from repro_torch.models.model import decode_step, params_to, prefill
     from repro_torch.serving.sampler import greedy
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     params = init_params(cfg2, seed=0, dtype=torch.float32, device="cpu")
-    prompts = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(4, prompt_len)).astype(np.int32)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, size=(4, prompt_len)
+                           + frames_of(cfg)).astype(np.int32)
+    pe = rng.standard_normal((4, prefix_len, cfg.d_model)).astype(
+        np.float32) if prefix_len else None
     runs = []
     for dev in ("cpu", CUDA):
         p = params_to(params, dev)
         lg, cache, _ = prefill(cfg2, p, torch.as_tensor(prompts, device=dev),
-                               cache_len=cache_len, capacity_factor=8.0)
+                               cache_len=cache_len, capacity_factor=8.0,
+                               prefix_embeds=None if pe is None
+                               else torch.as_tensor(pe, device=dev))
         logits, toks = [lg.cpu()], []
         tok = greedy(lg)
         for _ in range(8):
@@ -942,7 +1018,8 @@ def path_parity(cfg, prompt_len: int, cache_len: int):
         fail(f"parity {cfg.name}: non-finite logits on the GPU")
     err = max_err(lc, lg_)
     same = bool((tc == tg).all())
-    log(f"parity {cfg.name}: 2 layers f32, prefill 4x{prompt_len} + 8 "
+    log(f"parity {cfg.name}: 2 layers f32, prefill 4x{prompt_len} "
+        f"(prefix {prefix_len}, frames {frames_of(cfg)}) + 8 "
         f"decode steps: tokens equal={same}, max |logit diff|={err:.3e} "
         f"(tol {PARITY_LOGIT_TOL})")
     if not same or err > PARITY_LOGIT_TOL:
@@ -1324,7 +1401,9 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
     each policy. The launch counters are set to 0 just before each policy's
     continuous run and read just after it; the lockstep run and the
     prefill check lie outside that window. Every kernel in ``kernels``
-    must have launched; ``expect(engine)`` gives exact counts to hold."""
+    must have launched; ``expect(engine)`` gives exact counts to hold.
+    Each policy's result holds a replayed decode step's wall and device
+    time (replayed_step_ms) on the state its warm run left."""
     from repro_torch import kernels as K
     from repro_torch.bridge import init_params, param_count
     from repro_torch.models.model import prefill
@@ -1333,8 +1412,10 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
     params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CUDA)
     log(f"main path: {cfg.name} {cfg.num_layers} layers, "
         f"{param_count(params) / 1e9:.3f} B parameters, bf16")
+    frames = frames_of(cfg)
     prompts = np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(requests, prompt_len)).astype(np.int32)
+        0, cfg.vocab_size, size=(requests, prompt_len) + frames
+    ).astype(np.int32)
     results, tokens = {}, {}
     for pol in policies:
         eng = Engine(cfg, params, policy=pol, cache_len=cache_len,
@@ -1362,7 +1443,8 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
             if wrong:
                 fail(f"main path {cfg.name} ({pol.mode}): launches "
                      f"(counted, expected) {wrong}")
-            if cont.shape != (requests, new) or \
+            if cont.shape != (requests, new) + frames or \
+                    st.new_tokens != cont.size or \
                     not np.array_equal(cont, lock):
                 fail(f"main path {cfg.name} ({pol.mode}, {temp}): "
                      f"continuous (replayed graphs) != lockstep (eager)")
@@ -1378,27 +1460,30 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
             lg, _, _ = prefill(cfg, eng.params,
                                torch.as_tensor(prompts, device=CUDA),
                                cache_len=cache_len, capacity_factor=8.0)
-        if lg.shape != (requests, cfg.padded_vocab) or \
-                not torch.isfinite(lg[:, :cfg.vocab_size]).all():
+        if lg.shape != (requests,) + frames + (cfg.padded_vocab,) or \
+                not torch.isfinite(lg[..., :cfg.vocab_size]).all():
             fail(f"main path {cfg.name} ({pol.mode}): bad prefill logits")
-        res = dict(tokens_per_s=requests * new / wall, wall_s=wall,
-                   tokens_per_s_warm=requests * new / wall_warm,
+        res = dict(tokens_per_s=st.new_tokens / wall, wall_s=wall,
+                   tokens_per_s_warm=wst.new_tokens / wall_warm,
                    wall_s_warm=wall_warm, capture_s=st.capture_s,
                    launches=counts, prompt_len=prompt_len, new_tokens=new,
-                   requests=requests)
+                   requests=requests, tokens_per_request=st.new_tokens
+                   // requests)
         msg = ""
         if cfg.moe is not None:
             res.update(activated_experts=st.mean_aux("activated_experts"),
                        selected_set=st.mean_aux("selected_set"))
             msg = (f", activated experts per layer "
                    f"{res['activated_experts']:.2f}")
+        with torch.no_grad():
+            res["replayed_step"] = replayed_step_ms(eng, eng.decode_chunk)
         results[pol.mode] = res
         tokens[pol.mode] = cont
         log(f"main path {cfg.name} policy={pol.mode}: continuous == "
-            f"lockstep, {requests * new} tokens in {wall:.3f} s = "
-            f"{requests * new / wall:.1f} tokens/s cold (capture "
+            f"lockstep, {st.new_tokens} tokens in {wall:.3f} s = "
+            f"{res['tokens_per_s']:.1f} tokens/s cold (capture "
             f"{st.capture_s:.3f} s), {wall_warm:.3f} s = "
-            f"{requests * new / wall_warm:.1f} tokens/s warm{msg}")
+            f"{res['tokens_per_s_warm']:.1f} tokens/s warm{msg}")
     return results, eng.params, prompts, tokens
 
 
@@ -1425,6 +1510,141 @@ def dense_expect(cfg, new: int):
         return {"ssd_scan": 0, "grouped_ffn": 0, "moe_ffn": 0,
                 "decode_attention": cfg.num_layers * steps}
     return expect
+
+
+# ----------------------------------------------------- families phase ---
+
+def frames_of(cfg) -> tuple:
+    """The trailing shape of one token: (K,) codebooks for the audio
+    family, () for the others."""
+    return (cfg.num_codebooks,) if cfg.family == "audio" else ()
+
+
+def decode_step_ms(eng, prompts, pe, steps: int = 5):
+    """Host wall of one eager decode step as the lockstep loop runs it
+    (decode_step, the greedy pick, its read to the host), median of
+    ``steps`` after a prefill of ``prompts`` after ``pe``."""
+    from repro_torch.serving.sampler import greedy
+    lg, cache, _ = eng._prefill(eng.params,
+                                torch.as_tensor(prompts, device=CUDA), pe)
+    tok = greedy(lg)
+    walls = []
+    for _ in range(steps + 1):            # the first one warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache, _ = eng._decode(eng.params, tok[:, None], cache)
+        tok = greedy(lg[:, -1])
+        tok.cpu()
+        walls.append(time.perf_counter() - t0)
+    return float(np.median(walls[1:])) * 1e3
+
+
+def prefix_generate(eng, prompts, pe, new: int):
+    """Engine.generate with prefix embeddings (the lockstep loop), the
+    launch counters set to 0 just before and read just after. Returns
+    (tokens, stats, wall s, launches)."""
+    from repro_torch import kernels as K
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    toks, st = eng.generate(prompts, new, prefix_embeds=pe)
+    torch.cuda.synchronize()
+    return toks, st, time.perf_counter() - t0, K.launch_counts()
+
+
+def check_prefix_run(name, cfg, toks, st, counts, *, requests, new):
+    """A prefix run's gates: tokens of the expected shape in the
+    vocabulary, new_tokens counting K per frame, decode_attention once
+    per layer per decode step (new - 1 of them) and no other kernel."""
+    shape = (requests, new) + frames_of(cfg)
+    want = {"decode_attention": cfg.num_layers * (new - 1),
+            "grouped_ffn": 0, "moe_ffn": 0, "ssd_scan": 0}
+    wrong = {k: (counts[k], n) for k, n in want.items() if counts[k] != n}
+    if toks.shape != shape or st.new_tokens != toks.size or \
+            toks.min() < 0 or toks.max() >= cfg.vocab_size:
+        fail(f"families {name}: tokens {toks.shape} (want {shape}), "
+             f"new_tokens {st.new_tokens}, range {toks.min()}..{toks.max()}")
+    if wrong:
+        fail(f"families {name}: launches (counted, expected) {wrong}")
+
+
+def vlm_served(cfg, *, requests=8, new=FAMILY_NEW, cache_len=512):
+    """paligemma-3b at full width, bf16, random weights from seed 0:
+    ``requests`` requests of FAMILY_PREFIX N(0, 1) prefix embeddings
+    (a torch.Generator, seed 0) and FAMILY_PROMPT prompt tokens through
+    Engine.generate(prompts, new, prefix_embeds=pe), the lockstep loop,
+    twice. Gates: the first token is the argmax of forward(...,
+    prefix_embeds=pe) at the last position; decode_attention launched
+    exactly num_layers x (new - 1) times a call; both calls' tokens
+    equal."""
+    from repro_torch.bridge import init_params, param_count
+    from repro_torch.models.model import forward
+    from repro_torch.serving import Engine
+    from repro_torch.serving.sampler import greedy
+
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CUDA)
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(0)
+    pe = torch.randn((requests, FAMILY_PREFIX, cfg.d_model), generator=g,
+                     device=CUDA).to(torch.bfloat16)
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(requests, FAMILY_PROMPT)).astype(np.int32)
+    eng = Engine(cfg, params, cache_len=cache_len, device=CUDA)
+    runs = [prefix_generate(eng, prompts, pe, new) for _ in range(2)]
+    for toks, st, _, counts in runs:
+        check_prefix_run(cfg.name, cfg, toks, st, counts,
+                         requests=requests, new=new)
+    (toks, st, wall, counts), (toks2, _, wall2, _) = runs
+    if not np.array_equal(toks, toks2):
+        fail(f"families {cfg.name}: a second call gave other tokens")
+    with torch.no_grad():
+        lg, _ = forward(cfg, eng.params, torch.as_tensor(prompts,
+                                                         device=CUDA),
+                        prefix_embeds=pe)
+    first = greedy(lg[:, -1]).cpu().numpy()
+    if lg.shape[1] != FAMILY_PREFIX + FAMILY_PROMPT or \
+            not np.array_equal(first, toks[:, 0]):
+        fail(f"families {cfg.name}: first tokens {toks[:, 0]} != the "
+             f"argmax of forward's last position {first}")
+    with torch.no_grad():
+        step_ms = decode_step_ms(eng, prompts, pe)
+    res = dict(tokens_per_s=st.new_tokens / wall, wall_s=wall,
+               tokens_per_s_second=st.new_tokens / wall2,
+               wall_s_second=wall2, decode_step_wall_ms=step_ms,
+               launches=counts, requests=requests, prefix_len=FAMILY_PREFIX,
+               prompt_len=FAMILY_PROMPT, new_tokens=new,
+               params_b=param_count(params) / 1e9)
+    log(f"families {cfg.name}: {json.dumps(res)}")
+    return res
+
+
+def audio_served(cfg, *, requests=8, new=FAMILY_NEW, cache_len=512):
+    """musicgen-large at full width, bf16: main_path's gates over frames
+    of num_codebooks (continuous (replayed graphs) == lockstep (eager),
+    cold and warm, decode_attention once per layer per decode step,
+    new_tokens counting K per frame), a replayed step's wall and device
+    time; then once more with cfg.prefix_len N(0, 1) conditioning
+    embeddings through the lockstep loop: shape and launches."""
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving import Engine
+
+    res, params, prompts, _ = main_path(
+        cfg, kernels=("decode_attention",), prompt_len=FAMILY_PROMPT,
+        new=new, cache_len=cache_len, policies=(OFF,),
+        expect=dense_expect(cfg, new), requests=requests)
+    eng = Engine(cfg, params, cache_len=cache_len, device=CUDA)
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(0)
+    pe = torch.randn((requests, cfg.prefix_len, cfg.d_model), generator=g,
+                     device=CUDA).to(torch.bfloat16)
+    toks, st, wall, counts = prefix_generate(eng, prompts, pe, new)
+    check_prefix_run(f"{cfg.name} prefix", cfg, toks, st, counts,
+                     requests=requests, new=new)
+    res["prefix"] = dict(tokens_per_s=st.new_tokens / wall, wall_s=wall,
+                         launches=counts, prefix_len=cfg.prefix_len)
+    log(f"families {cfg.name}: {json.dumps(res)}")
+    del params, eng
+    return res
 
 
 # --------------------------------------------------- durability phase ---
@@ -1802,7 +2022,8 @@ def ep_layer_stats(cfg, params, prompts, ex, pol, *, cache_len: int):
 
 def replayed_step_ms(eng, steps: int):
     """Wall (host clock, median of 5) and device time (CUDA events;
-    torch.profiler's busy time) of a decode step replayed from the
+    torch.profiler's busy time, the port's kernels' share and the top
+    kernels) of a decode step replayed from the
     captured loop of the engine's newest running batch, on the state its
     last generate left."""
     from torch.profiler import ProfilerActivity, profile
@@ -1829,11 +2050,16 @@ def replayed_step_ms(eng, steps: int):
         torch.cuda.synchronize()
     kern = cuda_kernels(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1e3 / steps
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     return dict(wall_ms=float(np.median(walls)) * 1e3 / steps,
                 events_ms=float(np.median(events)) / steps,
                 device_busy_ms=busy if kern else "not measured",
                 kernels_per_step=sum(e.count for e in kern) / steps
-                if kern else "not measured")
+                if kern else "not measured",
+                port_kernels_ms=port_kernels_ms(kern, steps),
+                top=[dict(name=e.key[:60], ms=e.self_device_time_total
+                          / 1e3 / steps, calls=e.count / steps)
+                     for e in top])
 
 
 def ep_serve_phase(cfg, params, prompts, *, new=32, cache_len=512):
@@ -2976,9 +3202,14 @@ def main() -> int:
         t0 = time.perf_counter()
         build.build()
         log(f"built kernels in {time.perf_counter() - t0:.1f} s")
-        for line in build.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas:", line.strip())
+        ptxas = ptxas_report(build.build_log)
+        for f in ptxas:
+            log(f"  ptxas: {f['source']} {f['function'][:90]}: "
+                f"{f['registers']} registers, {f['spill_bytes']} bytes "
+                f"spilled")
+        spills = [f for f in ptxas if f["spill_bytes"]]
+        log(f"  ptxas: {len(ptxas)} kernels, {len(spills)} with spills: "
+            f"{[(f['source'], f['function'][:60]) for f in spills]}")
 
     cfg = ARCHS[ARCH]
     with Phase("kernels"), torch.no_grad():
@@ -3000,6 +3231,9 @@ def main() -> int:
         parity = {ARCH: path_parity(cfg, 64, 128)}
         for name in SSM_ARCHS:
             parity[name] = path_parity(ARCHS[name], 300, 320)
+        parity[VLM] = path_parity(ARCHS[VLM], 64, 384,
+                                  prefix_len=FAMILY_PREFIX)
+        parity[AUDIO] = path_parity(ARCHS[AUDIO], 64, 128)
         parity[f"{ARCH} spec"] = spec_parity(cfg, 64, 128)
 
     results, prof = {}, {}
@@ -3081,6 +3315,12 @@ def main() -> int:
             requests=4)
     del params
     torch.cuda.empty_cache()
+    # the VLM and audio families at full width, one model at a time
+    with Phase("families"):
+        results[VLM] = {"prefix": vlm_served(ARCHS[VLM])}
+        torch.cuda.empty_cache()
+        results[AUDIO] = audio_served(ARCHS[AUDIO])
+        torch.cuda.empty_cache()
 
     # training: the one kernel on its path is grouped_ffn, forward and
     # backward (the train step's counters are the backward's launches)

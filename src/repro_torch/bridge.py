@@ -21,7 +21,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
@@ -102,10 +102,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     """Random parameters with the JAX package's keys, shapes and dtypes:
     N(0, 0.02) matrices (N(0, 0.1) conv taps), unit norm weights, zero
     conv biases, an f32 router, and the SSM's A_log = 0, D = 1 and
-    dt_bias = 0 in f32 whatever the model's dtype."""
+    dt_bias = 0 in f32 whatever the model's dtype. The audio family has
+    one embedding table and one head per codebook: ``embed`` (K, V, d),
+    ``lm_head`` (K, d, V)."""
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (have {_FAMILIES})")
+        raise ValueError(f"unknown family {cfg.family!r} (have {_FAMILIES})")
     dev = resolve_device(device)
     g = generator
     if g is None:
@@ -172,10 +173,11 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                        ws2=dense((L, fs, d)))
         layers["moe_norm"] = ones((L, d))
         layers["moe"] = moe
-    elif cfg.family == "dense":
+    elif cfg.family in ("dense", "vlm", "audio"):
         layers["mlp_norm"] = ones((L, d))
         layers["mlp"] = mlp_params((L,))
-    params = {"embed": dense((V, d)), "layers": layers}
+    books = (cfg.num_codebooks,) if cfg.family == "audio" else ()
+    params = {"embed": dense(books + (V, d)), "layers": layers}
     if cfg.family == "hybrid":
         params["shared_attn"] = {"attn_norm": ones((d,)),
                                  "attn": attn_params(()),
@@ -183,7 +185,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
                                  "mlp": mlp_params(())}
     params["final_norm"] = ones((d,))
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((d, V))
+        params["lm_head"] = dense(books + (d, V))
     return params
 
 

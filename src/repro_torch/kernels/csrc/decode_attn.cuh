@@ -42,8 +42,10 @@
 //      key row and of a value row per position (a bf16 row's dh / 8
 //      chunks, rounded up to a power of two of lanes: head dim 80 puts
 //      10 chunks on 16 lanes, 6 of them dead; a warp load covers 32 /
-//      lanes positions), U positions per lane per step, all loads of a
-//      step issued before any is used. The dot product over dh takes
+//      lanes positions), U = 4 positions per lane per step (2 where 4
+//      would not fit in the registers beside the tile's queries: f32 at
+//      head dim 256 with 8 of them), all loads of a step issued before
+//      any is used. The dot product over dh takes
 //      log2(lanes per row) shuffles. Each lane keeps, for the tile's queries, the running
 //      max, normalizer and accumulator of its own live positions in f32
 //      registers; lanes are merged by xor shuffles, warps in shared
@@ -95,6 +97,18 @@ struct Geo {
   static_assert(DH % VEC == 0, "a row is whole 16-byte chunks");
   static_assert(!PAD || NCH == 1, "padded groups hold one chunk a lane");
 };
+
+// Positions a lane loads per step: U, or U / 2 where the tile's q and
+// accumulators (2 MAXQ EPL floats) and U steps of key and value chunks
+// (8 U NCH registers) would pass 160 of the 255 registers, the rest
+// going to addresses and the softmax: at f32, head dim 256, 8 queries
+// (128 + 64) ptxas spilled; bf16 there (128 + 32) does not. The span
+// unit (block_step) stays at U, a multiple of U / 2.
+template <typename T, int DH, int MAXQ>
+__host__ __device__ constexpr int lane_positions() {
+  return 2 * MAXQ * Geo<T, DH>::EPL + 8 * U * Geo<T, DH>::NCH > 160 ? U / 2
+                                                                     : U;
+}
 
 // element e of a lane's NCH 16-byte chunks, exactly in f32
 template <typename T, int NCH>
@@ -208,13 +222,14 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // most window + T - 1 <= C + T - 1 positions and T <= C, so two
   // subtractions wrap any slot of it
   const int slot_begin = !WIN || p_begin < C ? p_begin : p_begin % C;
-  constexpr int WSTEP = U * G::PPW;  // positions per warp per step
+  constexpr int UL = lane_positions<T, DH, MAXQ>();
+  constexpr int WSTEP = UL * G::PPW;  // positions per warp per step
   for (int p0 = p_begin + w * WSTEP; p0 < p_end; p0 += NW * WSTEP) {
-    uint4 kr[U][NCH], vr[U][NCH];
-    int pos[U];
-    bool ok[U];
+    uint4 kr[UL][NCH], vr[UL][NCH];
+    int pos[UL];
+    bool ok[UL];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
+    for (int u = 0; u < UL; ++u) {
       pos[u] = p0 + u * G::PPW + sub;
       ok[u] = pos[u] < p_end;
       int slot = pos[u];
@@ -238,10 +253,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (j >= nqi) break;
       const int lo = live_lo<WIN>(cur, tq[j], window);
       const int hi = live_hi<WIN>(cur, tq[j], C);
-      float s[U], mx = m[j];
-      bool live[U];
+      float s[UL], mx = m[j];
+      bool live[UL];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int u = 0; u < UL; ++u) {
         float d = 0.f;
 #pragma unroll
         for (int e = 0; e < EPL; ++e)
@@ -258,7 +273,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[j][e] *= alpha;
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
+      for (int u = 0; u < UL; ++u) {
         if (!live[u]) continue;
         const float p = expf(s[u] - mx);
         l[j] += p;

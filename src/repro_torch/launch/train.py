@@ -35,16 +35,19 @@ from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
 
 
 def loss_and_grads(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
+                   prefix_embeds: Optional[torch.Tensor] = None,
                    policy: XSharePolicy = OFF, remat: bool = True,
                    capacity_factor: float = 1.25):
-    """(loss, grads shaped like params) of loss_fn on one batch. The
+    """(loss, grads shaped like params) of loss_fn on one batch (after
+    prefix_embeds (B, P, d) when given, which get no gradient). The
     params are taken as fresh leaves that require grad, so the caller's
     tensors are never marked; a leaf the loss does not reach gets a zero
     gradient."""
     flat = {k: p.detach().requires_grad_(True)
             for k, p in flatten(params).items()}
     with torch.enable_grad():
-        loss, _ = loss_fn(cfg, unflatten(flat), tokens, policy=policy,
+        loss, _ = loss_fn(cfg, unflatten(flat), tokens,
+                          prefix_embeds=prefix_embeds, policy=policy,
                           remat=remat, capacity_factor=capacity_factor)
         got = torch.autograd.grad(loss, list(flat.values()),
                                   allow_unused=True)
@@ -61,33 +64,40 @@ def make_train_step(cfg: ArchConfig, *, policy: XSharePolicy = OFF,
     """fwd + bwd + clip + AdamW. accum_steps > 1 splits the batch into
     that many microbatches and sums their gradients in f32 (activation
     memory scales with the microbatch; the optimizer sees the whole
-    batch). lr is a float or a schedule of the step; the default is
-    cosine_schedule(3e-4, 100, 10000). The step returns (params, opt,
-    {"loss", "grad_norm"}) and leaves its inputs as they were."""
+    batch; prefix_embeds are split with the tokens). lr is a float or a
+    schedule of the step; the default is cosine_schedule(3e-4, 100,
+    10000). The step returns (params, opt, {"loss", "grad_norm"}) and
+    leaves its inputs as they were."""
     lr = lr or cosine_schedule(3e-4, 100, 10000)
     kw = dict(policy=policy, remat=remat, capacity_factor=capacity_factor)
 
     def train_step(params: Dict, opt_state, tokens,
                    prefix_embeds: Optional[torch.Tensor] = None):
-        if prefix_embeds is not None:
-            raise NotImplementedError("prefix embeddings are not ported "
-                                      "yet")
         dev = next(iter(flatten(params).values())).device
         tokens = torch.as_tensor(tokens, device=dev)
+        if prefix_embeds is not None:
+            prefix_embeds = torch.as_tensor(prefix_embeds, device=dev)
         if accum_steps == 1:
-            loss, grads = loss_and_grads(cfg, params, tokens, **kw)
+            loss, grads = loss_and_grads(cfg, params, tokens,
+                                         prefix_embeds=prefix_embeds, **kw)
         else:
             B = tokens.shape[0]
             if B % accum_steps:
                 raise ValueError(f"batch {B} is not a multiple of "
                                  f"accum_steps {accum_steps}")
+            mb = B // accum_steps
+            pe_mbs = [None] * accum_steps if prefix_embeds is None else \
+                prefix_embeds.reshape(accum_steps, mb,
+                                      *prefix_embeds.shape[1:])
             g_acc = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for k, p in flatten(params).items()}
             loss = torch.zeros((), dtype=torch.float32, device=dev)
-            for mb in tokens.reshape(accum_steps, B // accum_steps,
-                                     *tokens.shape[1:]):
-                l_mb, g = loss_and_grads(cfg, params, mb, **kw)
+            for t_mb, pe_mb in zip(tokens.reshape(accum_steps, mb,
+                                                  *tokens.shape[1:]),
+                                   pe_mbs):
+                l_mb, g = loss_and_grads(cfg, params, t_mb,
+                                         prefix_embeds=pe_mb, **kw)
                 for k, gk in flatten(g).items():
                     g_acc[k] += gk.float()
                 loss = loss + l_mb

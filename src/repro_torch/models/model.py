@@ -1,7 +1,12 @@
-"""Model composition: embed -> decoder blocks -> head, for the dense,
-MoE, SSM (Mamba2) and hybrid (Zamba2) families (the VLM and audio
-families are not ported). The hybrid applies one weight-shared
+"""Model composition: embed -> decoder blocks -> head, for the six
+families: dense, MoE, SSM (Mamba2), hybrid (Zamba2), VLM (PaliGemma's
+decoder) and audio (MusicGen's). The hybrid applies one weight-shared
 attention + MLP block before each group of ``attn_every`` SSM layers.
+The VLM and audio families are dense decoders: ``prefix_embeds`` (B, P,
+d), the stubbed image or conditioning frontend's output, go before the
+embedded tokens (forward, loss_fn, prefill), and the audio family's
+tokens are (B, S, K) frames of K codebooks, embedded as the sum of K
+lookups and read out by one head per codebook as (B, S, K, V) logits.
 
 Parameters are the JAX package's nested dict with the same keys and
 layouts; layer parameters are stacked on a leading L axis and the
@@ -39,14 +44,13 @@ from repro_torch.models.moe import OFF, moe_apply
 
 WINDOW_MARGIN = 512   # rolling-cache slack, as in the JAX package
 
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 _SSM_FAMILIES = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ArchConfig) -> None:
     if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (have {_FAMILIES})")
+        raise ValueError(f"unknown family {cfg.family!r} (have {_FAMILIES})")
 
 
 def params_to(params: Dict, device) -> Dict:
@@ -95,14 +99,41 @@ class Model(nn.Module):
 
 def embed_tokens(cfg: ArchConfig, params: Dict,
                  tokens: torch.Tensor) -> torch.Tensor:
+    """(B, S) tokens -> (B, S, d); audio (B, S, K) frames -> the sum of
+    the K codebooks' embeddings, added in codebook order."""
     _check_family(cfg)
-    return params["embed"][tokens.long()]
+    tokens = tokens.long()
+    if cfg.family == "audio":
+        out = params["embed"][0][tokens[..., 0]]
+        for k in range(1, cfg.num_codebooks):
+            out = out + params["embed"][k][tokens[..., k]]
+        return out
+    return params["embed"][tokens]
+
+
+def _embed_with_prefix(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
+                       prefix_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+    """The embedded tokens, after prefix_embeds (B, P, d) cast to their
+    dtype when given."""
+    x = embed_tokens(cfg, params, tokens)
+    if prefix_embeds is None:
+        return x
+    pe = torch.as_tensor(prefix_embeds, device=x.device).to(x.dtype)
+    return torch.cat([pe, x], dim=1)
 
 
 def lm_head_apply(cfg: ArchConfig, params: Dict,
                   x: torch.Tensor) -> torch.Tensor:
-    table = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x @ table
+    """(B, S, d) -> logits (B, S, V), audio (B, S, K, V); the padded
+    vocabulary's columns are -1e30."""
+    if cfg.family == "audio":
+        logits = torch.einsum("bsd,kvd->bskv", x, params["embed"]) \
+            if cfg.tie_embeddings else \
+            torch.einsum("bsd,kdv->bskv", x, params["lm_head"])
+    else:
+        table = params["embed"].T if cfg.tie_embeddings \
+            else params["lm_head"]
+        logits = x @ table
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(cfg.padded_vocab, device=x.device) \
             >= cfg.vocab_size
@@ -210,11 +241,10 @@ def _backbone(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     window overrides the config's sliding window. remat=True runs each
     layer (each SSM layer of the hybrid; not its shared block, as in
     the JAX package) under ``torch.utils.checkpoint``: its activations
-    are recomputed in the backward instead of kept. prefix_embeds (the
-    VLM and audio families' prefix) is not ported and raises."""
-    if prefix_embeds is not None:
-        raise NotImplementedError("prefix embeddings are not ported yet")
-    x = embed_tokens(cfg, params, tokens)
+    are recomputed in the backward instead of kept. prefix_embeds (B,
+    P, d), cast to the activations' dtype, go before the embedded
+    tokens; the positions count them."""
+    x = _embed_with_prefix(cfg, params, tokens, prefix_embeds)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
     win = window if window is not None else effective_window(cfg)
@@ -264,15 +294,19 @@ def _fused_head_ce(cfg: ArchConfig, params: Dict, x: torch.Tensor,
     ``chunk`` positions, each chunk under ``torch.utils.checkpoint``: the
     (B, S, V) f32 logits never exist at once, forward or backward (a
     chunk's are recomputed in the backward). x: (B, S, d); targets (B,
-    S). Returns the mean negative log-likelihood."""
+    S), audio (B, S, K), whose NLL is averaged over the codebooks.
+    Returns the mean negative log-likelihood."""
     B, Sx = x.shape[0], x.shape[1]
     c = min(chunk, Sx)
 
     def chunk_nll(xc, tc):
-        logits = lm_head_apply(cfg, params, xc).float()     # (B, c, V)
+        logits = lm_head_apply(cfg, params, xc).float()  # (B, c[, K], V)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
-        return (logz - gold).sum()
+        nll = logz - gold
+        if nll.ndim == 3:                                 # codebooks
+            nll = nll.mean(-1)
+        return nll.sum()
 
     total = x.new_zeros((), dtype=torch.float32)
     for lo in range(0, Sx, c):
@@ -287,12 +321,14 @@ def loss_fn(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             capacity_factor: float = 1.25, lb_weight: float = 0.02):
     """Mean next-token cross-entropy through the fused chunked head, plus
     lb_weight times the MoE load-balance auxiliary averaged over the
-    layers. tokens: (B, S). Returns (loss, aux)."""
+    layers. tokens: (B, S) (audio (B, S, K)); the P positions of
+    prefix_embeds predict nothing. Returns (loss, aux)."""
     x, aux = _backbone(cfg, params, tokens, prefix_embeds=prefix_embeds,
                        policy=policy, remat=remat,
                        capacity_factor=capacity_factor)
-    # the hidden state at position i predicts tokens[:, i + 1]
-    loss = _fused_head_ce(cfg, params, x[:, :-1], tokens[:, 1:])
+    P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+    # the hidden state at position P + i predicts tokens[:, i + 1]
+    loss = _fused_head_ce(cfg, params, x[:, P:-1], tokens[:, 1:])
     if lb_weight and "lb_loss" in aux:
         loss = loss + lb_weight * aux["lb_loss"].mean()
     return loss, aux
@@ -315,8 +351,8 @@ def check_cache_dtype(dtype, device) -> None:
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
                force_window: Optional[int] = None,
                device=None) -> Dict:
-    """Decode cache: per-slot ``cur_len`` (batch,); for the dense and MoE
-    families KV of shape (L, batch, C, Hkv, dh), C = cache_len (or
+    """Decode cache: per-slot ``cur_len`` (batch,); for the dense, MoE,
+    VLM and audio families KV of shape (L, batch, C, Hkv, dh), C = cache_len (or
     window + margin); for the SSM and hybrid families the conv tails
     ``conv_x`` / ``conv_B`` / ``conv_C`` (L, batch, K-1, ·) and the f32
     ``state`` (L, batch, nh, hd, ds); for the hybrid also the shared
@@ -398,17 +434,20 @@ def _build_cache_slice(k: torch.Tensor, C: int,
 
 def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
             cache_len: int,
+            prefix_embeds: Optional[torch.Tensor] = None,
             policy: XSharePolicy = OFF,
             force_window: Optional[int] = None,
             cache_dtype=None,
             capacity_factor: float = 1.25,
             dispatch: str = "auto"):
-    """Process the prompt and build the decode cache. tokens: (B, S);
-    cache_dtype defaults to the activations' (a 1-byte one raises on the
-    card, before any work). Returns (last-position logits (B, V), cache,
+    """Process the prompt and build the decode cache. tokens: (B, S)
+    (audio (B, S, K)), after prefix_embeds (B, P, d) when given, so the
+    cache holds P + S positions; cache_dtype defaults to the
+    activations' (a 1-byte one raises on the card, before any work).
+    Returns (last-position logits (B, V) (audio (B, K, V)), cache,
     aux)."""
     check_cache_dtype(cache_dtype, tokens.device)
-    x = embed_tokens(cfg, params, tokens)
+    x = _embed_with_prefix(cfg, params, tokens, prefix_embeds)
     B, T = x.shape[:2]
     positions = torch.arange(T, device=x.device)[None, :].expand(B, T)
     win = effective_window(cfg, force_window=force_window)
@@ -461,13 +500,15 @@ def decode_step(cfg: ArchConfig, params: Dict, tokens: torch.Tensor,
                 active: Optional[torch.Tensor] = None,
                 dispatch: str = "auto",
                 spec_priors: Optional[torch.Tensor] = None):
-    """T new tokens per row against the cache. tokens: (B, T).
+    """T new tokens per row against the cache. tokens: (B, T) (audio
+    (B, T, K)).
 
     active: optional (B,) bool compute mask — False rows are left out of
     MoE routing and its aux metrics; their logits are garbage the caller
     ignores.
 
-    Returns (logits (B, T, V), cache with cur_len advanced by T, aux);
+    Returns (logits (B, T, V) (audio (B, T, K, V)), cache with cur_len
+    advanced by T, aux);
     the KV, conv and state tensors are updated in place."""
     x = embed_tokens(cfg, params, tokens)
     B, T = x.shape[:2]

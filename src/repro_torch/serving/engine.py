@@ -25,7 +25,13 @@ references stay eager on purpose: on the card the continuous paths
 replay captured graphs, so continuous == lockstep holds graph against
 eager. The engine's LoopPool keeps the running batches and their graphs
 across schedulers: a second ``generate`` (or a front door's recovery)
-captures nothing new. Prefix embeddings are not ported yet and raise.
+captures nothing new.
+
+A request with prefix embeddings (the VLM and audio families' stubbed
+frontends) is served by the lockstep loop, as in the JAX package, whose
+scheduler takes no prefix; its cache positions count in the request's
+validation. Audio prompts are (B, S, K) codebook frames and come back as
+(B, new, K); ``new_tokens`` counts K per frame.
 """
 from __future__ import annotations
 
@@ -41,7 +47,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import (Model, decode_step, effective_window,
                                       params_to, prefill)
 from repro_torch.models.moe import OFF
-from repro_torch.serving.errors import validate_request
+from repro_torch.serving.errors import InvalidRequest, validate_request
 from repro_torch.serving.graphs import LoopPool
 from repro_torch.serving.sampler import greedy, sample_step
 from repro_torch.serving.scheduler import Scheduler
@@ -147,8 +153,9 @@ class Engine:
                 cache_len=cache_len, force_window=force_window,
                 capacity_factor=capacity_factor, dispatch=dispatch)
 
-    def _prefill(self, params, tokens):
+    def _prefill(self, params, tokens, prefix_embeds=None):
         return prefill(self.cfg, params, tokens, cache_len=self.cache_len,
+                       prefix_embeds=prefix_embeds,
                        policy=OFF, force_window=self.force_window,
                        capacity_factor=self.capacity_factor,
                        dispatch=self.dispatch)
@@ -223,25 +230,42 @@ class Engine:
     def generate(self, prompts: np.ndarray, max_new_tokens: int, *,
                  prefix_embeds=None,
                  lockstep: bool = False) -> Tuple[np.ndarray, GenStats]:
-        """prompts: (B, S) integer. Returns (tokens (B, max_new_tokens),
-        stats). Greedy unless temperature > 0. lockstep=True runs the
-        per-token host loop kept as the reference. With a draft model
+        """prompts: (B, S) integer ((B, S, K) audio). Returns (tokens (B,
+        max_new_tokens[, K]), stats). Greedy unless temperature > 0.
+        lockstep=True runs the per-token host loop kept as the reference,
+        which also serves prefix_embeds (B, P, d). With a draft model
         (spec_len > 0) the default path is the SpecScheduler and
         lockstep=True (or temperature > 0) the host-side draft / verify
-        reference loop, which is greedy."""
-        if prefix_embeds is not None:
-            raise NotImplementedError("prefix embeddings are not ported yet")
+        reference loop, which is greedy; it takes no prefix (the JAX
+        package drops one there unread; the port raises)."""
         prompts = np.asarray(prompts)
+        P = 0
+        if prefix_embeds is not None:
+            if self.spec_len:
+                raise ValueError(
+                    "prefix_embeds with a draft model: speculative "
+                    "decoding serves no prefix")
+            prefix_embeds = torch.as_tensor(prefix_embeds,
+                                            device=self.device)
+            want = (prompts.shape[0], self.cfg.d_model)
+            if prefix_embeds.ndim != 3 or \
+                    (prefix_embeds.shape[0], prefix_embeds.shape[2]) != want:
+                raise InvalidRequest(
+                    f"prefix_embeds of shape {tuple(prefix_embeds.shape)}; "
+                    f"want ({want[0]}, P, {want[1]})")
+            P = int(prefix_embeds.shape[1])
         validate_request(
             int(prompts.shape[1]), max_new_tokens,
             cache_len=self.cache_len,
             window=effective_window(self.cfg,
-                                    force_window=self.force_window))
+                                    force_window=self.force_window),
+            prefix_len=P)
         with torch.no_grad():
             if self.spec_len and (lockstep or self.temperature != 0.0):
                 return self._generate_spec(prompts, max_new_tokens)
-            if lockstep:
-                return self._generate_lockstep(prompts, max_new_tokens)
+            if lockstep or prefix_embeds is not None:
+                return self._generate_lockstep(prompts, max_new_tokens,
+                                               prefix_embeds)
             return self._generate_continuous(prompts, max_new_tokens)
 
     # ------------------------------------------------------- continuous --
@@ -264,7 +288,7 @@ class Engine:
         # the batch-level step count includes chunk overshoot past it
         stats.steps = max(len(st.tokens) for st in states) - 1
         stats.layer_aux = max((st.layer_aux for st in states), key=len)
-        stats.new_tokens = int(np.prod(toks.shape))
+        stats.new_tokens = int(np.prod(toks.shape))   # audio: K per frame
         if isinstance(sched, SpecScheduler):
             stats.steps = sched.total_steps       # draft-verify rounds
             stats.accepted_hist = list(sched.round_accept_hist)
@@ -277,14 +301,17 @@ class Engine:
 
     # ------------------------------------------- lockstep (reference) ----
 
-    def _generate_lockstep(self, prompts, max_new_tokens):
+    def _generate_lockstep(self, prompts, max_new_tokens,
+                           prefix_embeds=None):
         """Per-token host loop: one decode step and one device->host read
-        per token. The reference for the continuous path."""
+        per token. The reference for the continuous path, and the path
+        that serves prefix embeddings."""
         stats = GenStats(prompt_len=prompts.shape[1])
         t0 = time.perf_counter()
         lg, cache, _ = self._prefill(
-            self.params, torch.tensor(prompts, device=self.device))
-        tok = self._pick(lg)                                # (B,)
+            self.params, torch.tensor(prompts, device=self.device),
+            prefix_embeds)
+        tok = self._pick(lg)                                # (B[, K])
         outs = [tok.cpu().numpy()]
         for _ in range(max_new_tokens - 1):
             lg, cache, aux = self._decode(self.params, tok[:, None], cache)
@@ -295,7 +322,7 @@ class Engine:
                 stats.layer_aux.append(
                     {k: v.cpu().numpy() for k, v in aux.items()})
         toks = np.stack(outs, axis=1)
-        stats.new_tokens = int(np.prod(toks.shape))
+        stats.new_tokens = int(np.prod(toks.shape))   # audio: K per frame
         stats.wall_s = time.perf_counter() - t0
         return toks, stats
 

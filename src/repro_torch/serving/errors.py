@@ -142,19 +142,23 @@ def error_for_reason(reason):
 
 
 def validate_request(prompt_len: int, max_new_tokens: int, *,
-                     cache_len: int, window: Optional[int]) -> None:
+                     cache_len: int, window: Optional[int],
+                     prefix_len: int = 0) -> None:
     """Shared front-door validation for Scheduler.submit / Engine.generate.
 
     Rejects requests that would otherwise surface as a cache-splice
     shape error (or silent KV overwrite) deep in the decode path:
     the prompt plus every decode write must fit the per-slot cache
-    extent when no rolling window bounds it.
+    extent when no rolling window bounds it. ``prefix_len`` prefix
+    embeddings before the prompt take cache positions too, so they
+    count as prompt here (the JAX package leaves them out).
     """
     if max_new_tokens < 1:
         raise InvalidRequest(
             f"max_new_tokens must be >= 1, got {max_new_tokens}")
     if prompt_len < 1:
         raise InvalidRequest(f"empty prompt (length {prompt_len})")
+    prompt_len += prefix_len
     if window is None and prompt_len > cache_len:
         raise InvalidRequest(
             f"prompt length {prompt_len} exceeds cache_len {cache_len}")

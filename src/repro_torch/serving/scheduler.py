@@ -283,14 +283,16 @@ class Scheduler:
     # ------------------------------------------------------ batch state --
 
     def _state_key(self) -> tuple:
-        return ("plain", self.num_slots, self.cache_len,
-                self.params["embed"].dtype, self.fns.decode_chunk)
+        return ("plain", self.num_slots, self.cfg.num_codebooks,
+                self.cache_len, self.params["embed"].dtype,
+                self.fns.decode_chunk)
 
     def _new_state(self) -> LoopState:
         dtype = self.params["embed"].dtype
+        K = self.cfg.num_codebooks         # the audio family's frames
         return LoopState(
-            {"tok": torch.zeros((self.num_slots,), dtype=torch.int32,
-                                device=self.device),
+            {"tok": torch.zeros((self.num_slots,) + ((K,) if K > 1 else ()),
+                                dtype=torch.int32, device=self.device),
              "cache": init_cache(self.cfg, self.num_slots, self.cache_len,
                                  dtype, force_window=self._force_window,
                                  device=self.device)},
@@ -494,7 +496,7 @@ class Scheduler:
         prompts = torch.as_tensor(np.stack([st.req.prompt for st, _ in group]),
                                   device=self.device)
         lg, req_cache, _ = self.fns.prefill(self.params, prompts)
-        toks0 = self._first_token(lg)              # (G,)
+        toks0 = self._first_token(lg)              # (G,) or (G, K)
         toks0_np = toks0.cpu().numpy()   # blocks: TTFT must include device time
         if self.watchdog_s is not None and \
                 time.perf_counter() - t_pre > self.watchdog_s:
@@ -643,7 +645,7 @@ class Scheduler:
              for st in self._slots], np.int32)
         _, _, toks, aux, ok, poisoned = self._loop_at(self.level)(
             remaining=remaining, fault=fault)
-        toks = toks.cpu().numpy()                  # sync point: (N, B)
+        toks = toks.cpu().numpy()                  # sync point: (N, B[, K])
         ok = ok.cpu().numpy()                      # (N, B)
         poisoned = poisoned.cpu().numpy()          # (B,)
         dt = time.perf_counter() - t_round

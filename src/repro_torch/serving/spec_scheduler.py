@@ -64,9 +64,12 @@ _RECURRENT = ("ssm", "hybrid")
 
 
 def check_spec_pair(cfg: ArchConfig, dcfg: ArchConfig) -> None:
-    """Refuse what speculative decoding cannot serve exactly: a target
-    or draft with recurrent state (the SSM and hybrid families), and a
-    draft whose vocabulary differs from the target's."""
+    """Refuse what speculative decoding cannot serve: an audio target
+    (codebook frames, as the JAX package refuses), a target or draft
+    with recurrent state (the SSM and hybrid families), and a draft
+    whose vocabulary differs from the target's."""
+    if cfg.family == "audio":
+        raise NotImplementedError("spec decode for codebook streams")
     for role, c in (("target", cfg), ("draft", dcfg)):
         if c.family in _RECURRENT:
             raise NotImplementedError(

@@ -71,7 +71,8 @@ def decode_steps_fused(cfg: ArchConfig, params, tok: torch.Tensor,
                        fault: Fault = NO_FAULT):
     """Run ``num_steps`` decode + sample steps.
 
-    tok: (B,) each slot's last emitted token; remaining: (B,) tokens each
+    tok: (B,) each slot's last emitted token ((B, K) for the audio
+    family's codebook frames); remaining: (B,) tokens each
     slot still owes (0 = empty slot). The active mask is
     ``remaining > 0`` and is updated every step, so a slot that reaches
     its budget mid-chunk drops out of routing on the next step.
@@ -80,7 +81,7 @@ def decode_steps_fused(cfg: ArchConfig, params, tok: torch.Tensor,
     accepted too).
 
     ``tok`` and ``cache`` (its ``cur_len`` too) are updated in place.
-    Returns (tok, cache, toks (num_steps, B), aux (num_steps, L) per
+    Returns (tok, cache, toks (num_steps, B[, K]), aux (num_steps, L) per
     key, ok (num_steps, B) bool, poisoned (B,) bool): ``ok[i, b]`` marks
     a real token (slot active and finite at step i)."""
     B = tok.shape[0]
@@ -94,12 +95,12 @@ def decode_steps_fused(cfg: ArchConfig, params, tok: torch.Tensor,
             cfg, params, tok[:, None], cache, policy=policy,
             force_window=force_window, capacity_factor=capacity_factor,
             active=active, dispatch=dispatch)
-        last = _inject(lg[:, -1], fault, step_i)           # (B, V)
+        last = _inject(lg[:, -1], fault, step_i)           # (B[, K], V)
         finite = torch.isfinite(last).reshape(B, -1).all(dim=1)
         ok = active & finite
         poisoned = poisoned | (active & ~finite)
         nxt = sample_step(last, generator, temperature=temperature)
-        nxt = torch.where(ok, nxt, tok)
+        nxt = torch.where(ok if tok.ndim == 1 else ok[:, None], nxt, tok)
         cur0.copy_(torch.where(ok, cur0 + 1, cur0))
         remaining = remaining - ok.to(remaining.dtype)
         tok.copy_(nxt)

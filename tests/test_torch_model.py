@@ -120,14 +120,35 @@ def test_model_module_owns_the_parameters(moe_pair):
 
 @pytest.mark.parametrize("name", ["paligemma-3b", "musicgen-large"])
 def test_unported_families_raise(name):
-    """The VLM and audio families are not ported: init and the model
-    refuse them."""
-    cfg = small(ARCHS, name)
+    """What the VLM and audio families still refuse, now that they are
+    ported: speculative decoding of an audio target (codebook frames, as
+    the JAX package refuses), and a prefix with a draft model (the JAX
+    package drops it unread). Their init_params and init_cache give the
+    JAX package's keys, shapes and dtypes."""
+    from repro_torch.serving import Engine
+    jcfg, cfg = small(JARCHS, name), small(ARCHS, name)
     assert cfg.family in ("vlm", "audio")
-    with pytest.raises(NotImplementedError):
-        bridge.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TMD.init_cache(cfg, 1, 8, torch.float32)
+    tp = bridge.init_params(cfg, device="cpu")
+    jflat = bridge.flatten(to_np(JMD.init_params(jcfg,
+                                                 jax.random.PRNGKey(0))))
+    tflat = bridge.flatten(tp)
+    assert sorted(tflat) == sorted(jflat)
+    assert all(tuple(tflat[k].shape) == a.shape and
+               str(tflat[k].dtype) == f"torch.{a.dtype}"
+               for k, a in jflat.items())
+    jc = JMD.init_cache(jcfg, 1, 8, jnp.float32)
+    tc = TMD.init_cache(cfg, 1, 8, torch.float32)
+    assert {k: tuple(v.shape) for k, v in tc.items()} == \
+        {k: v.shape for k, v in jc.items()}
+    if cfg.family == "audio":
+        with pytest.raises(NotImplementedError, match="codebook streams"):
+            Engine(cfg, tp, draft=(cfg, tp), spec_len=2, device="cpu")
+    else:
+        eng = Engine(cfg, tp, cache_len=64, draft=(cfg, tp), spec_len=2,
+                     device="cpu")
+        with pytest.raises(ValueError, match="draft model"):
+            eng.generate(np.zeros((1, 4), np.int32), 2,
+                         prefix_embeds=np.zeros((1, 3, cfg.d_model)))
 
 
 # ---------------------------------------------------- forward / decode ----

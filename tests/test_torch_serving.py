@@ -238,16 +238,22 @@ def test_sampling_is_seeded(moe):
 
 def test_unported_options_raise(moe):
     """Speculative decoding raises for an SSM target (a rejected draft
-    would need its state rolled back); prefix embeddings are not ported
-    yet."""
-    tcfg, tp = moe[1], moe[3]
+    would need its state rolled back) and for an audio target (codebook
+    frames; the JAX package raises the same), through the Engine and a
+    SpecScheduler made directly."""
+    from repro_torch.serving.spec_scheduler import SpecConfig, SpecScheduler
     scfg = small(ARCHS, "mamba2-370m")
     sp = bridge.init_params(scfg, device="cpu")
     with pytest.raises(NotImplementedError, match="rolling back cur_len"):
         Engine(scfg, sp, draft=(scfg, sp), spec_len=3, device="cpu")
-    eng = Engine(tcfg, tp, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.generate(moe[4], 4, prefix_embeds=np.zeros((3, 2, 128)))
+    acfg = small(ARCHS, "musicgen-large")
+    ap = bridge.init_params(acfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="codebook streams"):
+        Engine(acfg, ap, draft=(acfg, ap), spec_len=3, device="cpu")
+    with pytest.raises(NotImplementedError, match="codebook streams"):
+        SpecScheduler(acfg, ap, draft=(acfg, ap),
+                      spec_cfg=SpecConfig(spec_len=3), num_slots=2,
+                      device="cpu")
 
 
 def test_nan_quarantine_freezes_one_slot(moe):

@@ -477,13 +477,22 @@ def test_cli_checkpoint_restores_in_the_jax_package(tmp_path, capsys):
 
 
 def test_prefix_embeds_and_unported_train_inputs_raise(models):
+    """A train step whose batch is not a multiple of accum_steps raises
+    ValueError, with prefix embeddings too (they are split with the
+    tokens); with a batch that splits, the prefix reaches the loss."""
     _, tc, _, tp = models["tiny-moe"]
-    with pytest.raises(NotImplementedError):
-        TMD.loss_fn(tc, tp, torch.as_tensor(tokens(128)),
-                    prefix_embeds=torch.zeros((2, 3, 64)))
     with pytest.raises(ValueError):
         make_train_step(tc, accum_steps=3)(tp, TOPT.adamw_init(tp),
                                            tokens(128, batch=4))
+    pe = torch.ones((4, 3, tc.d_model))
+    with pytest.raises(ValueError, match="accum_steps"):
+        make_train_step(tc, accum_steps=3)(tp, TOPT.adamw_init(tp),
+                                           tokens(128, batch=4), pe)
+    _, _, m = make_train_step(tc, accum_steps=2)(
+        tp, TOPT.adamw_init(tp), tokens(128, batch=4), pe)
+    with torch.no_grad():
+        plain = TMD.loss_fn(tc, tp, torch.as_tensor(tokens(128, batch=4)))[0]
+    assert torch.isfinite(m["loss"]) and float(m["loss"]) != float(plain)
 
 
 @pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-1.2b"])
