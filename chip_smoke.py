@@ -98,6 +98,25 @@ each prints its wall time):
                 time; and (CUDA activity only) over one speculative
                 dispatch of granite-moe (4 rounds, small draft), eager
                 and replayed, per round;
+  5b. serve cli the public wrappers of kernels/ops.py (xshare_moe_ffn,
+                xshare_grouped_ffn, flash_decode at granite-moe's decode
+                and prefill shapes; ssd_chunk_scan at mamba2-370m's
+                prefill, B and C pre-broadcast to the heads), f32 and
+                bf16, each once against its kernel's plain version
+                (TOL; the scan SCAN_TOL), each call one launch; then the
+                serve CLI, repro_torch.launch.serve.main, at
+                granite-moe's full width (f32 weights from seed 0, 8 x
+                128 SyntheticLM prompts, 32 new): policy off, batch (k0
+                1, m_l 8) and --spec-len 4 (2-layer draft at the
+                target's vocabulary), each with exact launches from the
+                rounds it ran (counters set to 0 just before a run,
+                read just after) and the reference's printed lines; off
+                == Engine.generate on the same weights and prompts, spec
+                == off, batch activates fewer experts than off; then
+                launch/roofline.py's one-card bounds (model_shards 1) of
+                the bf16 decode step (B 8, cache 512; off and batch)
+                beside the profile phase's replayed steps, and of the 8
+                x 128 prefill beside its eager prefill (printed only);
   6. bf16 check granite-moe's prefill logits (24 layers, 8 x 128) with
                 the grouped_ffn kernel, and mamba2-370m's (48 layers,
                 8 x 500) with the ssd_scan kernel, each also with the
@@ -214,10 +233,6 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM3 rate,
-# bf16 tensor-core rate, f32 rate outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOP_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain version on the same inputs: the repo's kernel-test
 # tolerances (tests/test_kernels.py), atol = rtol
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -308,8 +323,13 @@ def time_ms(fn, iters: int = 20, warmup: int = 3):
 
 
 def bound_ms(nbytes: float, flops: float, dtype):
-    t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_FLOP_S[dtype]
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    HBM rate and the operations over the dtype's peak, from the H100's
+    published peaks in ``repro_torch.launch.roofline``."""
+    from repro_torch.launch import roofline as R
+    t_bytes = nbytes / R.HBM_BW
+    t_ops = flops / {torch.bfloat16: R.PEAK_FLOPS,
+                     torch.float32: R.PEAK_FLOPS_F32}[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -2730,6 +2750,243 @@ def profile_phase(cfg, params, prompts, *, cache_len: int, steps: int = 8,
     return out
 
 
+# ---------------------------------------------------- serve cli phase ---
+
+SERVE_CLI = ["--arch", ARCH, "--batch", "8", "--prompt-len", "128",
+             "--new-tokens", "32"]
+SERVE_CLI_RUNS = {"off": [], "batch": ["--policy", "batch", "--k0", "1",
+                                       "--m-l", "8"],
+                  "spec": ["--spec-len", "4"]}
+
+
+def ops_cases(archs):
+    """Each public wrapper of ``repro_torch.kernels.ops`` once against its
+    kernel's plain version, f32 and bf16, at the kernel phase's shapes:
+    granite's decode step (xshare_moe_ffn, 8 tokens, policy off,
+    max_active None, so E), its 8 x 128 prefill (xshare_grouped_ffn,
+    top-8 of 32) and its decode attention (flash_decode, 8 rows, cache
+    512, lengths 129-160); mamba2-370m's prefill (ssd_chunk_scan, 8 x
+    500, B and C pre-broadcast to the heads, as the reference takes
+    them). Each call must add one to its kernel's launch count."""
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import topk_route
+    from repro_torch.kernels import ops
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+    from repro_torch.models.moe import OFF, route
+    from repro_torch.models.ssm import dims
+
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(2121)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=CUDA)
+                ).to(dtype)
+
+    cfg, scfg = archs[ARCH], archs["mamba2-370m"]
+    d, E, f, k = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert, \
+        cfg.moe.top_k
+    a, s = cfg.attn, scfg.ssm
+    _, nh, _ = dims(s, scfg.d_model)
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        w1, w3 = (randn(E, d, f, scale=0.02, dtype=dtype) for _ in range(2))
+        w2 = randn(E, f, d, scale=0.02, dtype=dtype)
+        wg = randn(d, E, scale=0.02)
+        xt = randn(8, d, dtype=dtype)
+        _, _, combine, _ = route({"wg": wg}, xt, cfg.moe, OFF)
+        active = (combine != 0).any(0)
+        x = randn(8 * 128, d, dtype=dtype)
+        plan = dispatch_plan(*topk_route(x.float() @ wg, k), E)
+        xs = gather_tokens(x, plan)
+        q = randn(8, a.num_heads, a.head_dim, dtype=dtype)
+        kc, vc = (randn(8, 512, a.num_kv_heads, a.head_dim, dtype=dtype)
+                  for _ in range(2))
+        lengths = torch.randint(129, 161, (8,), generator=g, device=CUDA,
+                                dtype=torch.int32)
+        B, S = 8, 500
+        sx = randn(B, S, nh, s.head_dim, scale=0.5, dtype=dtype)
+        sdt = torch.nn.functional.softplus(randn(B, S, nh))
+        sA = -torch.exp(randn(nh, scale=0.3))
+        sB, sC = (randn(B, S, nh, s.d_state, scale=0.3, dtype=dtype)
+                  for _ in range(2))
+        calls = (
+            ("xshare_moe_ffn", "moe_ffn", TOL,
+             lambda: ops.xshare_moe_ffn(xt, w1, w3, w2, combine, active),
+             lambda: K.moe_ffn_plain(xt, w1, w3, w2, combine, active)),
+            ("xshare_grouped_ffn", "grouped_ffn", TOL,
+             lambda: ops.xshare_grouped_ffn(
+                 xs, w1, w3, w2, plan.tile_eid, plan.tile_valid,
+                 block_t=plan.block_t),
+             lambda: K.grouped_ffn_plain(
+                 xs, w1, w3, w2, plan.tile_eid, plan.tile_valid,
+                 block_t=plan.block_t)),
+            ("flash_decode", "decode_attention", TOL,
+             lambda: ops.flash_decode(q, kc, vc, lengths),
+             lambda: K.decode_attention_plain(q, kc, vc, lengths)),
+            ("ssd_chunk_scan", "ssd_scan", SCAN_TOL,
+             lambda: ops.ssd_chunk_scan(sx, sdt, sA, sB, sC,
+                                        chunk=s.chunk_size),
+             lambda: K.ssd_scan_plain(sx, sdt, sA, sB, sC,
+                                      chunk=s.chunk_size)))
+        for name, kernel, tol, call, plain in calls:
+            before = K.KERNELS[kernel].launches
+            got = call()
+            launched = K.KERNELS[kernel].launches - before
+            ref = plain()
+            if name == "ssd_chunk_scan":
+                err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+                ok = close(got[0], ref[0], dtype, tol) and \
+                    close(got[1], ref[1], torch.float32, tol)
+            else:
+                err, ok = max_err(got, ref), close(got, ref, dtype, tol)
+            case = dict(wrapper=name, kernel=kernel,
+                        dtype=str(dtype).replace("torch.", ""),
+                        max_abs_err=err, tol=tol[dtype], ok=ok,
+                        launches=launched)
+            log(f"ops {name} {dtype}: {json.dumps(case)}")
+            if not ok or launched != 1:
+                fail(f"ops.{name} ({dtype}): error {err} (tol "
+                     f"{tol[dtype]}), {launched} launches of {kernel}")
+            out.append(case)
+    return out
+
+
+def cli_lines(text: str):
+    """The serve CLI's printed lines with every number replaced by #."""
+    return [re.sub(r"\d+(\.\d+)?", "#", ln) for ln in text.splitlines()]
+
+
+def cli_expect(cfg, run: str, stats, decode_chunk: int):
+    """Exact launches of one serve CLI run (8 requests admitted together):
+    plain, one prefill (grouped_ffn once per layer) and the decode rounds
+    of decode_chunk steps up to the 31 tokens after the first (moe_ffn
+    and decode_attention once per layer a step); speculative,
+    spec_expect over the rounds the run reports."""
+    from repro_torch.launch.serve import draft_config
+    if run == "spec":
+        return spec_expect(cfg, draft_config(cfg), stats.steps, 4)
+    steps = -(-(32 - 1) // decode_chunk) * decode_chunk
+    L = cfg.num_layers
+    return {"grouped_ffn": L, "moe_ffn": L * steps,
+            "decode_attention": L * steps, "ssd_scan": 0,
+            "grouped_ffn_bwd": 0}
+
+
+def serve_cli_phase(cfg, prof):
+    """The serve CLI (``repro_torch.launch.serve.main``) at granite-moe's
+    full width, f32 weights from seed 0 as the CLI draws them, 8 x 128
+    prompts of SyntheticLM, 32 new: policy off, batch (k0 1, m_l 8) and
+    --spec-len 4 (the CLI's 2-layer draft at the target's vocabulary).
+    Counters set to 0 just before each run and read just after: exact
+    launches. Each run prints the reference's lines; off's tokens equal
+    Engine.generate's on the same weights and prompts, the spec run's
+    equal off's, and batch activates fewer experts than off. Then the
+    one-card roofline (model_shards 1) of the bf16 served decode step (B
+    8, cache 512) beside the replayed step the profile phase measured,
+    and of the 8 x 128 prefill beside its eager prefill: printed, not
+    held."""
+    import contextlib
+    import inspect
+    import io
+
+    from repro_torch import kernels as K
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.base import ShapeConfig, XSharePolicy
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import serve
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving import Engine
+
+    if serve.draft_config(cfg) != draft_config(cfg):
+        fail("serve CLI: its draft is not the spec phase's small draft")
+    chunk = inspect.signature(Engine).parameters["decode_chunk"].default
+    want_lines = ["generated: (#, #)", "OTPS #  steps #",
+                  "mean activated experts/layer: # (selected set #, gate "
+                  "mass #)"]
+    out, toks = {}, {}
+    for run, extra in SERVE_CLI_RUNS.items():
+        buf = io.StringIO()
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            tk, st = serve.main(SERVE_CLI + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        text = buf.getvalue()
+        log(f"serve cli {run}: " + " | ".join(text.splitlines()))
+        lines = want_lines[:2] + (["mean accepted drafts/step: #"]
+                                  if run == "spec" else []) + want_lines[2:]
+        if cli_lines(text) != lines:
+            fail(f"serve cli {run}: printed {text!r}")
+        want = cli_expect(cfg, run, st, chunk)
+        if counts != want:
+            fail(f"serve cli {run}: launches {counts}, expected {want} "
+                 f"({st.steps} steps or rounds)")
+        if tk.shape != (8, 32) or tk.min() < 0 or \
+                tk.max() >= cfg.vocab_size:
+            fail(f"serve cli {run}: bad tokens {tk.shape}")
+        toks[run] = tk
+        # the CLI's own OTPS is generate's, cold (capture included); the
+        # call's wall also draws the weights and builds the engine
+        out[run] = dict(otps=st.otps, call_wall_s=wall, steps=st.steps,
+                        launches=counts,
+                        capture_s=st.capture_s,
+                        activated_experts=st.mean_aux("activated_experts"),
+                        mean_accepted=st.mean_accepted)
+        log(f"serve cli {run}: {json.dumps(out[run])}")
+        torch.cuda.empty_cache()
+    params = init_params(cfg, seed=0, device=CUDA)
+    prompts = SyntheticLM(cfg.vocab_size, name=ARCH).sample(
+        np.random.default_rng(0), 8, 128)
+    direct, _ = Engine(cfg, params, cache_len=128 + 32 + 16,
+                       device=CUDA).generate(prompts, 32)
+    del params
+    torch.cuda.empty_cache()
+    if not np.array_equal(toks["off"], direct):
+        fail("serve cli off: tokens differ from Engine.generate's")
+    if not np.array_equal(toks["spec"], toks["off"]):
+        fail("serve cli spec: tokens differ from plain greedy's")
+    if not out["batch"]["activated_experts"] < out["off"]["activated_experts"]:
+        fail(f"serve cli: batch activates {out['batch']['activated_experts']}"
+             f" experts, off {out['off']['activated_experts']}")
+    log("serve cli: off == Engine.generate, spec == off, activated experts "
+        f"batch {out['batch']['activated_experts']:.2f} < off "
+        f"{out['off']['activated_experts']:.2f}")
+
+    # the roofline on one card: the experts on one shard
+    decode = ShapeConfig(name="served decode", seq_len=512, global_batch=8,
+                         kind="decode", cache_len=512)
+    pre = ShapeConfig(name="served prefill", seq_len=128, global_batch=8,
+                      kind="prefill")
+    roof = {}
+    for name, shape, pol, measured in (
+            ("decode off", decode, OFF, prof["replay"]),
+            ("decode batch", decode, XSharePolicy(mode="batch", k0=1,
+                                                  m_l=8),
+             prof["replay batch"]),
+            ("prefill", pre, OFF, prof["prefill"])):
+        nbytes = R.analytic_bytes(cfg, shape, policy=pol, num_devices=1,
+                                  model_shards=1)
+        flops = R.analytic_flops(cfg, shape)
+        t = R.roofline_terms(flops, nbytes, 0.0)
+        bound = max(t["compute_s"], t["memory_s"]) * 1e3
+        busy = measured["device_busy_ms"]
+        roof[name] = dict(
+            bytes=nbytes, flops=flops, memory_ms=t["memory_s"] * 1e3,
+            compute_ms=t["compute_s"] * 1e3, bound_ms=bound,
+            bound_by=t["dominant"], measured_wall_ms=measured["wall_ms"],
+            measured_device_busy_ms=busy,
+            share_of_wall=bound / measured["wall_ms"],
+            share_of_busy=bound / busy if isinstance(busy, float)
+            else "not measured")
+        log(f"roofline {cfg.name} {name} (one card, model_shards 1): "
+            f"{json.dumps(roof[name])}")
+    return {"runs": out, "roofline": roof}
+
+
 # -------------------------------------------------------- train phase ---
 
 # The trained speculation of benchmarks/fig5_table4_spec.py, with its
@@ -3253,6 +3510,12 @@ def main() -> int:
         prof[ARCH] = profile_phase(cfg, params, prompts, cache_len=512,
                                    batch=XSharePolicy(mode="batch", k0=1,
                                                       m_l=8))
+    # the reference's other entry point: the serve CLI, and the public
+    # kernel wrappers of kernels/ops.py
+    with Phase(f"serve cli {ARCH}"), torch.no_grad():
+        serve_cli = {"ops": ops_cases(ARCHS)}
+        serve_cli.update(serve_cli_phase(cfg, prof[ARCH]))
+        results[f"{ARCH} serve cli"] = serve_cli["runs"]
     bf16_check = {}
     with Phase(f"bf16 check {ARCH}"), torch.no_grad():
         from repro_torch.kernels import grouped_ffn_plain
@@ -3374,7 +3637,8 @@ def main() -> int:
     print(json.dumps({"kernels": line, "main_path": results,
                       "parity": parity, "spec_lossless": lossless,
                       "bf16_check": bf16_check, "profile": prof,
-                      "graphs": graphs, "durability": durability,
+                      "graphs": graphs, "serve_cli": serve_cli,
+                      "durability": durability,
                       "ep": ep, "train": train, "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)

@@ -13,12 +13,16 @@ host's enqueueing outside the timed window). It holds each kernel to its
 plain version as those functions do, and checks no design goal of this
 checkout's kernels. Cases a tree's kernel has no instance for (head dim
 80, h2o-danube's, and 16, the trained speculation's, before they were
-built; grouped_ffn_bwd before it existed) are left out for that tree. Prints one JSON line per case (source, kernel, dtype,
-case, ms, the library call's or yardstick's ms, CUDA kernels per call);
+built; grouped_ffn_bwd before it existed) are left out for that tree;
+a tree without ``repro_torch/launch/roofline.py`` takes this checkout's
+peaks for the bounds. Prints one JSON line per case (source, kernel,
+dtype, case, ms, the library call's or yardstick's ms, CUDA kernels per
+call);
 FILE gets every case in full. To compare commits A and B, run A, B, B, A in one call."""
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import sys
 from pathlib import Path
@@ -47,6 +51,14 @@ def main() -> int:
     from repro_torch.kernels import build
     if src not in Path(repro_torch.__file__).resolve().parents:
         raise RuntimeError(f"repro_torch came from {repro_torch.__file__}")
+    try:
+        import repro_torch.launch.roofline  # noqa: F401  (the peaks)
+    except ModuleNotFoundError:   # a tree from before it: this checkout's
+        name = "repro_torch.launch.roofline"
+        spec = importlib.util.spec_from_file_location(
+            name, chip_smoke.ROOT / "src/repro_torch/launch/roofline.py")
+        sys.modules[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[name])
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
     from repro_torch import kernels as K

@@ -18,7 +18,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.device import DeviceLike, resolve_device
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
@@ -95,6 +95,39 @@ def dtypes_of(params: Mapping) -> Dict[str, str]:
 
 # ----------------------------------------------------------------- init ---
 
+def dense_sampler(seed: int, dtype: torch.dtype, device: DeviceLike,
+                  generator: Optional[torch.Generator]):
+    """(device, dense): ``dense(shape, dt=dtype, scale=0.02)`` draws
+    scale * N(0, 1) in f32 from ``generator`` (a new one seeded with
+    ``seed`` when None) and casts it to dt."""
+    dev = resolve_device(device)
+    g = generator
+    if g is None:
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+
+    def dense(shape, dt=dtype, scale=0.02):
+        w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
+        return (scale * w).to(dt)
+    return dev, dense
+
+
+def moe_params(moe: MoEConfig, d_model: int, dense, pre: tuple = ()) -> Dict:
+    """One MoE layer's leaves, stacked on ``pre``: the f32 router ``wg``
+    (d, E), the experts' w1 / w3 (E, d, f) and w2 (E, f, d), and the
+    shared experts' ws1 / ws3 / ws2 when the config has them."""
+    E, f = moe.num_experts, moe.d_ff_expert
+    d = d_model
+    p = {"wg": dense(pre + (d, E), torch.float32),
+         "w1": dense(pre + (E, d, f)), "w3": dense(pre + (E, d, f)),
+         "w2": dense(pre + (E, f, d))}
+    if moe.num_shared_experts:
+        fs = moe.d_ff_shared * moe.num_shared_experts
+        p.update(ws1=dense(pre + (d, fs)), ws3=dense(pre + (d, fs)),
+                 ws2=dense(pre + (fs, d)))
+    return p
+
+
 def init_params(cfg: ArchConfig, *, seed: int = 0,
                 dtype: torch.dtype = torch.float32,
                 device: DeviceLike = None,
@@ -107,15 +140,7 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     ``lm_head`` (K, d, V)."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"unknown family {cfg.family!r} (have {_FAMILIES})")
-    dev = resolve_device(device)
-    g = generator
-    if g is None:
-        g = torch.Generator(device=dev)
-        g.manual_seed(seed)
-
-    def dense(shape, dt=dtype, scale=0.02):
-        w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-        return (scale * w).to(dt)
+    dev, dense = dense_sampler(seed, dtype, device, generator)
 
     def ones(shape, dt=dtype):
         return torch.ones(shape, device=dev, dtype=dt)
@@ -162,17 +187,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0,
     else:
         layers = {"attn_norm": ones((L, d)), "attn": attn_params((L,))}
     if cfg.family == "moe":
-        m = cfg.moe
-        E, f = m.num_experts, m.d_ff_expert
-        moe = {"wg": dense((L, d, E), torch.float32),
-               "w1": dense((L, E, d, f)), "w3": dense((L, E, d, f)),
-               "w2": dense((L, E, f, d))}
-        if m.num_shared_experts:
-            fs = m.d_ff_shared * m.num_shared_experts
-            moe.update(ws1=dense((L, d, fs)), ws3=dense((L, d, fs)),
-                       ws2=dense((L, fs, d)))
         layers["moe_norm"] = ones((L, d))
-        layers["moe"] = moe
+        layers["moe"] = moe_params(cfg.moe, d, dense, (L,))
     elif cfg.family in ("dense", "vlm", "audio"):
         layers["mlp_norm"] = ones((L, d))
         layers["mlp"] = mlp_params((L,))

@@ -7,9 +7,21 @@ descending sort, sliced.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+
+def router_probs(x: torch.Tensor, w_g: torch.Tensor,
+                 bias: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The full gating distribution softmax(x W_g) over all experts. x:
+    (T, d), w_g: (d, E). Returns (logits, probs), each (T, E) in f32:
+    routing is decided in full precision."""
+    logits = x.float() @ w_g.float()
+    if bias is not None:
+        logits = logits + bias
+    return logits, torch.softmax(logits, dim=-1)
 
 
 def topk(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,3 +54,13 @@ def combine_matrix(idx: torch.Tensor, w: torch.Tensor,
     out = torch.zeros((T, num_experts + 1), dtype=w.dtype, device=w.device)
     out.scatter_add_(1, col, w)
     return out[:, :num_experts]
+
+
+def dispatch_combine_weights(idx: torch.Tensor, w: torch.Tensor,
+                             num_experts: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style dense tensors from sparse (T, k) routing: (dispatch
+    (T, E) bool, True where a token goes to an expert; combine (T, E),
+    its gate weight there and 0 elsewhere)."""
+    combine = combine_matrix(idx, w, num_experts)
+    return combine > 0, combine

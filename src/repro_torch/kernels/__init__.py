@@ -7,8 +7,11 @@ beside its plain PyTorch version.
   decode_attention  flash-decode GQA over the cache (csrc/decode_attn.cuh)
   ssd_scan          Mamba2's chunked SSD scan       (csrc/ssd_scan.cu)
 
-Nothing is compiled or loaded on import: the library is built at the
-first launch on a CUDA tensor (``kernels/build.py``).
+``kernels/ops.py`` holds the JAX package's public wrappers over these
+(``xshare_moe_ffn``, ``xshare_grouped_ffn``, ``flash_decode``,
+``ssd_chunk_scan``) and its byte models. Nothing is compiled or loaded
+on import: the library is built at the first launch on a CUDA tensor
+(``kernels/build.py``).
 """
 from repro_torch.kernels.decode_attn import (  # noqa: F401
     decode_attention, decode_attention_cached, decode_attention_cached_plain,
@@ -20,6 +23,10 @@ from repro_torch.kernels.moe_ffn import (  # noqa: F401
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: F401
     ssd_scan, ssd_scan_plain,
+)
+from repro_torch.kernels.ops import (  # noqa: F401
+    dispatch_einsum_bytes, dispatch_sorted_bytes, flash_decode,
+    moe_step_bytes, ssd_chunk_scan, xshare_grouped_ffn, xshare_moe_ffn,
 )
 
 KERNELS = {"grouped_ffn": grouped_ffn, "moe_ffn": moe_ffn,

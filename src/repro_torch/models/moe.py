@@ -25,10 +25,12 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.bridge import dense_sampler, moe_params
 from repro_torch.configs.base import MoEConfig, XSharePolicy
 from repro_torch.core import metrics as M
 from repro_torch.core import selection
 from repro_torch.core.routing import combine_matrix, topk_route
+from repro_torch.device import DeviceLike
 from repro_torch.kernels import moe_ffn
 from repro_torch.models import dispatch as DSP
 from repro_torch.models.layers import mlp_apply
@@ -56,6 +58,19 @@ def policy_max_active(policy: XSharePolicy, num_tokens: int,
         b, t = spec_shape
         return min(E, b * (policy.k0 * t + policy.m_r) + policy.m_l)
     return E
+
+
+def init_moe(moe: MoEConfig, d_model: int, dtype: torch.dtype, *,
+             stack: Optional[int] = None,
+             generator: Optional[torch.Generator] = None, seed: int = 0,
+             device: DeviceLike = None) -> Dict:
+    """One MoE layer's parameters (stacked on a leading ``stack`` axis
+    when given): the JAX package's ``init_moe`` keys, shapes and dtypes,
+    N(0, 0.02) drawn from ``generator`` (a new one seeded with ``seed``
+    when None) on ``device``, the card unless the caller names another."""
+    _, dense = dense_sampler(seed, dtype, device, generator)
+    return moe_params(moe, d_model, dense,
+                      () if stack is None else (stack,))
 
 
 def route(p: Dict, x: torch.Tensor, moe: MoEConfig, policy: XSharePolicy,

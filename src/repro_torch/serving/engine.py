@@ -135,11 +135,12 @@ class Engine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._seed = seed
-        self._fns = build_step_fns(
+        # the step functions of each decode chunk a scheduler asked for
+        self._fns_by_chunk = {decode_chunk: build_step_fns(
             cfg, policy=policy, cache_len=cache_len,
             decode_chunk=decode_chunk, temperature=temperature,
             force_window=force_window, capacity_factor=capacity_factor,
-            dispatch=dispatch)
+            dispatch=dispatch)}
         self.loops = LoopPool()   # running batches and captured loops
         self._schedulers = 0
         # the verify pass routes with Algorithm 4 or not at all
@@ -188,23 +189,35 @@ class Engine:
         return sample_step(logits, self._gen, temperature=self.temperature)
 
     def make_scheduler(self, *, num_slots: int, admission: str = "fcfs",
+                       decode_chunk: Optional[int] = None,
                        spec_cfg: Optional[SpecConfig] = None,
                        **robustness) -> Scheduler:
         """A Scheduler sharing this engine's functions and device — the
         entry point for open-ended (arrival-process) serving. An engine
         with a draft model and spec_len > 0 gets a SpecScheduler
         (submit(spec=False) opts a request out; spec_cfg overrides the
-        engine's SpecConfig). Extra keyword args pass through to the
-        Scheduler's robustness layer."""
+        engine's SpecConfig). decode_chunk overrides the engine's
+        (shorter chunks trade throughput for admission latency); the
+        step functions are built once per chunk and kept. Extra keyword
+        args pass through to the Scheduler's robustness layer."""
         self._schedulers += 1
+        chunk = decode_chunk or self.decode_chunk
+        if chunk not in self._fns_by_chunk:
+            self._fns_by_chunk[chunk] = build_step_fns(
+                self.cfg, policy=self.policy, cache_len=self.cache_len,
+                decode_chunk=chunk, temperature=self.temperature,
+                force_window=self.force_window,
+                capacity_factor=self.capacity_factor,
+                dispatch=self.dispatch)
         common = dict(
             num_slots=num_slots, cache_len=self.cache_len,
             policy=self.policy, admission=admission,
-            decode_chunk=self.decode_chunk, temperature=self.temperature,
+            decode_chunk=chunk, temperature=self.temperature,
             force_window=self.force_window,
             capacity_factor=self.capacity_factor, dispatch=self.dispatch,
-            seed=self._seed + self._schedulers, fns=self._fns,
-            loop_pool=self.loops, device=self.device, **robustness)
+            seed=self._seed + self._schedulers,
+            fns=self._fns_by_chunk[chunk], loop_pool=self.loops,
+            device=self.device, **robustness)
         if self._spec_fns is None:
             return Scheduler(self.cfg, self.params, **common)
         sc = spec_cfg or SpecConfig(

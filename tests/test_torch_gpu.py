@@ -1205,3 +1205,82 @@ def test_ep_engine_new_table_shape_keeps_device_memory(cuda):
     assert np.array_equal(out, ref) and st.capture_s > 0
     assert len(eng.loops.states()) == 1
     assert before <= after <= before + tables, (before, after, tables)
+
+
+# ---------------------------------------------- the launch layer (ops) ---
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ops_wrappers_launch_their_kernels(cuda, dtype):
+    """Each public wrapper of kernels/ops.py on CUDA tensors launches its
+    kernel once and agrees with the plain version (TOL; the scan's
+    SCAN_TOL); xshare_moe_ffn's max_active None is E."""
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import combine_matrix, topk_route
+    from repro_torch.kernels import ops
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+    g = torch.Generator().manual_seed(31)
+    T, d, E, f = 8, 128, 8, 96
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.05).to(cuda) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.05).to(cuda)
+    x = rand(g, (T, d), dtype).to(cuda)
+    idx, w = topk_route(rand(g, (T, E), torch.float32).to(cuda), 2)
+    combine = combine_matrix(idx, w, E)
+    active = (combine != 0).any(0)
+    xs_plan = dispatch_plan(idx, w, E)
+    xs = gather_tokens(x, xs_plan)
+    q = rand(g, (3, 4, 64), dtype).to(cuda)
+    kc, vc = (rand(g, (3, 100, 2, 64), dtype).to(cuda) for _ in range(2))
+    lengths = torch.tensor([100, 37, 1], dtype=torch.int32, device=cuda)
+    sx = rand(g, (2, 70, 4, 64), dtype, 0.5).to(cuda)
+    sdt = torch.nn.functional.softplus(rand(g, (2, 70, 4),
+                                            torch.float32)).to(cuda)
+    sA = -torch.exp(rand(g, (4,), torch.float32, 0.3)).to(cuda)
+    sB, sC = (rand(g, (2, 70, 4, 128), dtype, 0.3).to(cuda)
+              for _ in range(2))
+    pairs = (
+        ("moe_ffn", TOL,
+         lambda: ops.xshare_moe_ffn(x, w1, w3, w2, combine, active),
+         lambda: K.moe_ffn_plain(x, w1, w3, w2, combine, active)),
+        ("grouped_ffn", TOL,
+         lambda: ops.xshare_grouped_ffn(xs, w1, w3, w2, xs_plan.tile_eid,
+                                        xs_plan.tile_valid,
+                                        block_t=xs_plan.block_t),
+         lambda: K.grouped_ffn_plain(xs, w1, w3, w2, xs_plan.tile_eid,
+                                     xs_plan.tile_valid,
+                                     block_t=xs_plan.block_t)),
+        ("decode_attention", TOL,
+         lambda: ops.flash_decode(q, kc, vc, lengths),
+         lambda: K.decode_attention_plain(q, kc, vc, lengths)),
+        ("ssd_scan", SCAN_TOL,
+         lambda: ops.ssd_chunk_scan(sx, sdt, sA, sB, sC, chunk=32),
+         lambda: K.ssd_scan_plain(sx, sdt, sA, sB, sC, chunk=32)))
+    for kernel, tol, call, plain in pairs:
+        before = K.KERNELS[kernel].launches
+        out = call()
+        assert K.KERNELS[kernel].launches == before + 1, kernel
+        ref = plain()
+        for o, r in zip(*((out, ref) if kernel == "ssd_scan"
+                          else ((out,), (ref,)))):
+            torch.testing.assert_close(o.float().cpu(), r.float().cpu(),
+                                       atol=tol[o.dtype], rtol=tol[o.dtype])
+
+
+def test_serve_cli_on_the_card(cuda, capsys):
+    """The serve CLI at --reduced on the card (the default device): the
+    kernels of the path launch, and --spec-len 3 gives the plain run's
+    tokens (speculation is lossless)."""
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve
+    args = ["--arch", "granite-moe-1b-a400m", "--reduced", "--batch", "4",
+            "--prompt-len", "40", "--new-tokens", "12"]
+    toks = []
+    for extra in ([], ["--spec-len", "3"]):
+        K.reset_launch_counts()
+        got, st = serve.main(args + extra)
+        counts = K.launch_counts()
+        assert min(counts[n] for n in ("grouped_ffn", "moe_ffn",
+                                       "decode_attention")) > 0, counts
+        assert got.shape == (4, 12) and st.new_tokens == 48
+        toks.append(got)
+    np.testing.assert_array_equal(toks[1], toks[0])
+    assert capsys.readouterr().out.count("generated: (4, 12)") == 2

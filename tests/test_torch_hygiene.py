@@ -38,7 +38,9 @@ def test_port_sources_import_no_jax_and_no_repro():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch.serving, repro_torch.kernels, "
             "repro_torch.bridge, repro_torch.checkpoint, repro_torch.data, "
-            "repro_torch.optim, repro_torch.launch.train, repro_torch.ep; "
+            "repro_torch.optim, repro_torch.launch.train, repro_torch.ep, "
+            "repro_torch.launch.serve, repro_torch.launch.inputs, "
+            "repro_torch.launch.roofline, repro_torch.configs.shapes; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")
