@@ -54,6 +54,13 @@ each prints its wall time):
                 lengths in a cache of 512: paligemma-3b (8 rows, 8 query
                 heads on 1 KV head of 256, cur_len 384-415) and
                 musicgen-large (8 rows, 32 / 32 heads of 64, 128-159);
+                decode_attention's e4m3 instance (bf16 q over a
+                float8_e4m3fn cache) at granite-moe's decode shape and
+                at musicgen-large's and qwen3-moe-235b-a22b's decode_32k
+                shapes (8 rows, a cache of 33 280, cur_len 32768-32775),
+                within TOL of the plain version and EXACT_BF16 of f32
+                math on the dequantized cache, beside the bf16 instance
+                on that cache and a dequantize + SDPA yardstick;
   3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
                 shared-block application), prefill of 4 x 64 tokens
                 (granite-moe; paligemma-3b after 256 prefix embeddings;
@@ -150,6 +157,21 @@ each prints its wall time):
                 32 x 4), a replayed step's wall and device time, then
                 with its 64 conditioning embeddings through the lockstep
                 loop: shape and launches;
+  7c. f8 cache  musicgen-large at decode_32k's cache of 33 280 slots with
+                an e4m3 cache: the dry run's records (bf16 and e4m3
+                cache) and the rows each fits in 90 % of the card; at the
+                e4m3 batch, 8 greedy steps through make_serve_step with
+                the full-width bf16 weights (step ms, decode_attention's
+                share, peak memory against the record, the record's
+                byte bound, tokens/s; 48 decode_attention launches a
+                step, nothing else); then at 2 rows the e4m3 step
+                against a bf16 step on the dequantized cache whose
+                writes round each new row through e4m3: logits bit-equal
+                at each of 8 teacher-forced steps (the gap to a bf16
+                step writing bf16 rows printed beside);
+  7d. dryrun    (host only) repro_torch.launch.dryrun --all: 10 archs x
+                4 shapes x 2 production meshes traced on meta in parallel
+                processes, all must trace; report.py's tables;
   8. durability granite-moe through the crash-tolerant FrontDoor at full
                 width, bf16, 8 x 128 prompts, 32 new, 8 slots, journal
                 and snapshots every 2 rounds: (a) fault-free; (b) killed
@@ -388,8 +410,8 @@ def ptxas_report(build_log: str):
     sources the build log heads with "== name"."""
     out, src, cur = [], "", None
     for line in build_log.splitlines():
-        if line.startswith("== "):
-            src = line[3:].strip()
+        if line.startswith("== "):       # "== name (seconds s)"
+            src = line[3:].split(" (")[0].strip()
         elif "Compiling entry function" in line:
             cur = dict(source=src, function=line.split("'")[1],
                        registers=None, spill_bytes=0)
@@ -549,7 +571,131 @@ def kernel_cases(archs):
     out["decode_attention"] += danube_attention_cases(archs)
     out["decode_attention"] += bench_attention_cases()
     out["decode_attention"] += family_attention_cases(archs)
+    out["decode_attention"] += e4m3_attention_cases(archs)
     return out
+
+
+# decode_32k's cache: 32768 positions + the dry run's CACHE_MARGIN of 512
+DECODE_32K_CACHE = 32768 + 512
+F8 = torch.float8_e4m3fn
+
+
+def e4m3_attention_cases(archs):
+    """decode_attention's e4m3 instance: bf16 queries over a
+    float8_e4m3fn cache (drawn N(0, 1) in bf16 from a seeded generator
+    and rounded to e4m3), one query per row, at granite-moe's decode
+    shape (8 rows, 16 / 8 heads of 64, a cache of 512, cur_len 128-159)
+    and at the two decode_32k shapes the planning experiments put an
+    e4m3 cache under: musicgen-large's (8 rows, 32 / 32 heads of 64) and
+    qwen3-moe-235b-a22b's (8 rows, 64 / 4 heads of 128), in a cache of
+    33 280 slots with cur_len 32768-32775.
+
+    Held against the plain version on the same e4m3 cache at the bf16
+    TOL, and against f32 math on the dequantized inputs at EXACT_BF16.
+    Timed beside: the bound (the live positions' bytes at 1 byte a cache
+    element), the bf16 instance on the dequantized (bf16) cache, and
+    the library yardstick, which dequantizes to bf16 and then calls
+    SDPA. Last and on their own generator; none in a tree without the
+    instance (an older commit's, timed by kernel_times.py)."""
+    from repro_torch.kernels import decode_attn
+    if not hasattr(decode_attn, "_E4M3_HEAD_DIMS"):
+        return []
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(8484)
+    bf = torch.bfloat16
+    cases = []
+    for label, a, C, lo in (
+            (ARCH, archs[ARCH].attn, 512, FAMILY_PROMPT),
+            (AUDIO, archs[AUDIO].attn, DECODE_32K_CACHE, 32768),
+            ("qwen3-moe-235b-a22b", archs["qwen3-moe-235b-a22b"].attn,
+             DECODE_32K_CACHE, 32768)):
+        B, T, hi = 8, 1, lo + 31 if C == 512 else lo + 7
+        H, Hkv, dh = a.num_heads, a.num_kv_heads, a.head_dim
+        cur = torch.randint(lo, hi + 1, (B,), generator=g, device=CUDA,
+                            dtype=torch.int32)
+        q = torch.randn((B, T, H, dh), generator=g, device=CUDA).to(bf)
+        k8 = torch.randn((B, C, Hkv, dh), generator=g, device=CUDA).to(F8)
+        v8 = torch.randn((B, C, Hkv, dh), generator=g, device=CUDA).to(F8)
+        cases.append(e4m3_case(label, q, k8, v8, cur, f"cur_len {lo}-{hi}"))
+        del q, k8, v8
+        torch.cuda.empty_cache()
+    return cases
+
+
+def e4m3_case(label, q, k8, v8, cur, lengths: str) -> dict:
+    """One e4m3 case of decode_attention (see e4m3_attention_cases): q
+    (B, T, H, dh) in bf16 over the e4m3 cache k8 / v8 (B, C, Hkv, dh) at
+    per-row lengths ``cur``. The f32 math runs row by row and the
+    dequantized copies are made after it, so a case on the f8 phase's
+    served cache needs at most a few GB beside it."""
+    from repro_torch.kernels import (decode_attention_cached,
+                                     decode_attention_cached_plain)
+    bf = torch.bfloat16
+    B, T, H, dh = q.shape
+    C, Hkv = k8.shape[1], k8.shape[2]
+
+    def kernel():
+        return decode_attention_cached(q, k8, v8, cur)
+
+    def plain():
+        return decode_attention_cached_plain(q, k8, v8, cur)
+    ker, ref = kernel(), plain()
+    err = max_err(ker, ref)
+    atol, rtol = EXACT_BF16
+    exact_err, exact_ok = 0.0, True
+    for b in range(B):
+        ref32 = decode_attention_cached_plain(
+            q[b:b + 1].float(), k8[b:b + 1].float(), v8[b:b + 1].float(),
+            cur[b:b + 1])
+        exact_err = max(exact_err, max_err(ker[b:b + 1], ref32))
+        exact_ok &= bool(torch.allclose(ker[b:b + 1].float(), ref32,
+                                        atol=atol, rtol=rtol))
+        del ref32
+    kb, vb = k8.to(bf), v8.to(bf)
+
+    def bf16_instance():
+        return decode_attention_cached(q, kb, vb, cur)
+    same_as_bf16 = bool(torch.equal(ker, bf16_instance()))
+    mask = cached_mask(cur, T, C, None)
+    qt = q.transpose(1, 2)
+
+    def library():   # dequantize, then SDPA
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, k8.to(bf).transpose(1, 2), v8.to(bf).transpose(1, 2),
+            attn_mask=mask[:, None], enable_gqa=True)
+    live = int(mask.any(1).sum())
+    nbytes = 2 * q.numel() * 2 + 2 * live * Hkv * dh * 1 + B * 4
+    bms, by = bound_ms(nbytes, 4.0 * int(mask.sum()) * H * dh, bf)
+    n_kern, kern_us = cuda_kernels_of(kernel)
+    case = dict(
+        dtype="float8_e4m3fn", q_dtype="bfloat16",
+        cache_dtype="float8_e4m3fn", model=label, case="decode e4m3",
+        lengths=lengths,
+        shape=f"B={B} T={T} C={C} H={H} Hkv={Hkv} dh={dh} "
+              f"window=None live={live}",
+        max_abs_err=err, tol=TOL[bf], ok=close(ker, ref, bf) and
+        exact_ok, exact_max_abs_err=exact_err, exact_ok=exact_ok,
+        exact_tol=EXACT_BF16, equals_bf16_instance=same_as_bf16,
+        ref_max_abs=float(ref.float().abs().max()),
+        ref_rms=float(ref.float().square().mean().sqrt()),
+        library_max_abs_err=max_err(library().transpose(1, 2), ref),
+        kernels_per_call=n_kern, kernel_device_us=kern_us,
+        ms=time_ms(kernel), plain_ms=time_ms(plain),
+        bf16_instance_ms=time_ms(bf16_instance), bound_ms=bms,
+        bound_by=by, library_ms=time_ms(library))
+    case["ms_over_bf16_instance"] = case["ms"] / case["bf16_instance_ms"]
+    case["ms_over_library"] = case["ms"] / case["library_ms"]
+    log(f"decode_attention e4m3 {label} {case['shape']}: max abs err "
+        f"{err:.3g} (limit {TOL[bf]}), vs f32 math {exact_err:.3g} "
+        f"(limit atol {atol} rtol {rtol}), equals the bf16 instance "
+        f"on the dequantized cache: {same_as_bf16}; {case['ms']:.4f} "
+        f"ms, bf16 instance {case['bf16_instance_ms']:.4f} ms, "
+        f"dequantize + SDPA {case['library_ms']:.4f} ms, plain "
+        f"{case['plain_ms']:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{n_kern} CUDA kernels per call")
+    del ker, ref, kb, vb, mask
+    torch.cuda.empty_cache()
+    return case
 
 
 def family_attention_cases(archs):
@@ -1665,6 +1811,300 @@ def audio_served(cfg, *, requests=8, new=FAMILY_NEW, cache_len=512):
     log(f"families {cfg.name}: {json.dumps(res)}")
     del params, eng
     return res
+
+
+# --------------------------------------- f8 cache at decode_32k phase ---
+
+F8_STEPS = 8        # greedy decode steps at the served batch
+F8_GATE_ROWS = 2    # rows of the e4m3 vs dequantized-bf16 gate
+MEM_SHARE = 0.9     # of the card's memory a plan may fill
+
+
+def fill_f8_cache(cfg, B: int, C: int, g, cur: int):
+    """init_cache's e4m3 cache for B rows of C slots, K and V filled
+    layer by layer and row by row with N(0, 1) drawn in bf16 from ``g``
+    and rounded to e4m3 by the copy (no temporary larger than one row of
+    one layer); cur_len ``cur`` for every row."""
+    from repro_torch.models import init_cache
+    cache = init_cache(cfg, B, C, F8, device=CUDA)
+    for key in ("kv_k", "kv_v"):
+        t = cache[key]
+        for layer in range(t.shape[0]):
+            for b in range(B):
+                t[layer, b].copy_(torch.randn(
+                    t.shape[2:], generator=g, device=CUDA,
+                    dtype=torch.bfloat16))
+    cache["cur_len"].fill_(cur)
+    return cache
+
+
+def f8_cache_phase(cfg):
+    """musicgen-large at decode_32k's cache length (33 280 slots) on one
+    card with an e4m3 cache, the planning experiments' regime.
+
+    The dry run's records (launch/dryrun.lower_one on make_host_mesh())
+    with a bf16 and an e4m3 cache give the largest batch each allows in
+    MEM_SHARE of the card's memory (the weights plus that many rows of
+    cache). At the e4m3 batch: the cache built by init_cache and filled
+    from a seeded generator, cur_len 32768, F8_STEPS greedy steps through
+    launch/serve.make_serve_step with the full-width bf16 weights, each
+    timed by CUDA events; decode_attention's share of a profiled step;
+    the peak memory against the served batch's record (params_gb +
+    cache_gb); the record's byte bound of the step; tokens/s counting
+    the K codebooks of a frame. Launches exact: decode_attention once a
+    layer a step, nothing else. Then decode_attention's e4m3 instance on
+    the served cache's first layer at the batch and lengths the steps
+    gave it (``e4m3_case``: against its plain version at TOL and f32
+    math at EXACT_BF16, timed), and the gate (``f8_gate``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.shapes import get_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import make_serve_step
+
+    shape = get_shape("decode_32k")
+    mesh = make_host_mesh()
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    budget = MEM_SHARE * total_gb
+    recs, rows = {}, {}
+    for name, dt in (("bfloat16", None), ("float8_e4m3fn", F8)):
+        rec = dryrun.lower_one(cfg, shape, mesh, cache_dtype=dt)
+        an = rec["analytic"]
+        rows[name] = int((budget - an["params_gb"])
+                         // (an["cache_gb"] / shape.global_batch))
+        recs[name] = rec
+        log(f"f8 cache: record ({name} cache) {dryrun.record_line(rec)} "
+            f"{json.dumps(an)}; at most {rows[name]} rows in "
+            f"{MEM_SHARE} x {total_gb:.2f} GB")
+    B = rows["float8_e4m3fn"]
+    served = dryrun.lower_one(cfg, dataclasses.replace(shape, global_batch=B),
+                              mesh, cache_dtype=F8)
+    want_gb = served["analytic"]["params_gb"] + served["analytic"]["cache_gb"]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(3280)
+    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CUDA)
+    t0 = time.perf_counter()
+    cache = fill_f8_cache(cfg, B, DECODE_32K_CACHE, g, 32768)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    step = make_serve_step(cfg)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1) + frames_of(cfg),
+                        generator=g, device=CUDA, dtype=torch.int32)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    step_ms = []
+    for _ in range(F8_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache, _ = step(params, tok, cache)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        b.record()
+        b.synchronize()
+        step_ms.append(a.elapsed_time(b))
+    counts = K.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = {n: 0 for n in counts}
+    want["decode_attention"] = cfg.num_layers * F8_STEPS
+    if counts != want:
+        fail(f"f8 cache musicgen: launches {counts}, want {want}")
+    if not bool(torch.isfinite(logits.float()).all()) or \
+            int(cache["cur_len"].min()) != 32768 + F8_STEPS:
+        fail("f8 cache musicgen: non-finite logits or cur_len off")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, tok, cache)
+        torch.cuda.synchronize()
+    kern = cuda_kernels(prof)
+    dev_us = sum(e.self_device_time_total for e in kern)
+    attn_us = sum(e.self_device_time_total for e in kern
+                  if e.key.replace("(anonymous namespace)::", "")
+                  .removeprefix("void ").startswith(
+                      ("decode_split_kernel", "decode_merge_kernel")))
+    med = float(np.median(step_ms))
+    bound = served["memory_s"] * 1e3
+    frames = B * F8_STEPS
+    res = dict(
+        rows=rows, predicted_rows={"bfloat16": 5, "float8_e4m3fn": 10},
+        batch=B, cache_len=DECODE_32K_CACHE, cur_len=32768,
+        steps=F8_STEPS, step_ms=step_ms, step_ms_median=med,
+        bound_ms=bound, bound_by=served["dominant"],
+        step_over_bound=med / bound, decode_attention_share=attn_us / dev_us,
+        device_ms_profiled_step=dev_us / 1e3,
+        kernels_profiled_step=sum(e.count for e in kern),
+        peak_gb=peak_gb, record_state_gb=want_gb,
+        tokens_per_s=frames * cfg.num_codebooks / (sum(step_ms) / 1e3),
+        fill_s=fill_s, launches=counts,
+        records={n: {k: r[k] for k in ("mesh", "devices", "analytic",
+                                       "memory_s", "compute_s",
+                                       "dominant", "trace_s")}
+                 for n, r in recs.items()})
+    log(f"f8 cache musicgen-large decode_32k: {B} rows x "
+        f"{DECODE_32K_CACHE} slots (e4m3), step {med:.3f} ms median of "
+        f"{F8_STEPS} ({[round(x, 3) for x in step_ms]}), bound "
+        f"{bound:.3f} ms ({served['dominant']}), step / bound "
+        f"{med / bound:.3f}; decode_attention {attn_us / dev_us:.3f} of "
+        f"the profiled step's {dev_us / 1e3:.3f} device ms; peak "
+        f"{peak_gb:.3f} GB against the record's {want_gb:.3f}; "
+        f"{res['tokens_per_s']:.1f} tokens/s ({cfg.num_codebooks} "
+        f"codebooks a frame); launches {counts}")
+    # decode_attention's e4m3 instance against its plain version at the
+    # shape the path gave it: the served cache's first layer, all B
+    # rows, the lengths of the last step's read
+    q = torch.randn((B, 1, cfg.attn.num_heads, cfg.attn.head_dim),
+                    generator=g, device=CUDA).to(torch.bfloat16)
+    last = 32768 + F8_STEPS - 1
+    res["served_kernel_case"] = e4m3_case(
+        f"{cfg.name} served", q, cache["kv_k"][0], cache["kv_v"][0],
+        torch.full((B,), last, dtype=torch.int32, device=CUDA),
+        f"cur_len {last} (the last timed step's read)")
+    if not res["served_kernel_case"]["ok"]:
+        fail(f"f8 cache: decode_attention's e4m3 instance disagrees with "
+             f"its plain version on the served cache: "
+             f"{res['served_kernel_case']}")
+    del cache, logits, q
+    torch.cuda.empty_cache()
+
+    # the gate: e4m3 vs bf16 on the dequantized copy, same tokens
+    res.update(f8_gate(cfg, params, step, g))
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def f8_gate(cfg, params, step, g) -> dict:
+    """F8_GATE_ROWS rows of an e4m3 cache at decode_32k's length, stepped
+    F8_STEPS times on the same (teacher-forced) tokens beside three
+    references, each on its own cache.
+
+    The gate: a bf16 copy dequantized from it whose cache writes round
+    each new K / V row through e4m3 first holds the same cache values as
+    the e4m3 run at every step, so its logits must be bit-equal: the
+    e4m3 instance reads what the bf16 instance reads, in the same order.
+
+    Printed, not gated: (a) a bf16 copy that writes its new rows in
+    bf16, as a bf16 cache does (the comparison the plan first gated at
+    TOL); its logits differ from the e4m3 run's by the rounding of each
+    step's own row, carried through 48 bf16 layers. (b) The witness of
+    that gap's size: the e4m3 run again with decode_attention's plain
+    version in place of the kernel (the same cache values, another
+    order of summation). If (b)'s gap is of (a)'s order, TOL is below
+    what any change of rounding gives at this depth, and (a) says
+    nothing about the kernel. On the CPU at 48 bf16 layers of reduced
+    width, JAX's own e4m3 and bf16 paths differ by the same order as the
+    port's (tests/test_torch_planning.py::
+    test_f8_cache_gap_to_a_bf16_cache)."""
+    from repro_torch.kernels import decode_attention_cached_plain
+    from repro_torch.models import attention as A
+
+    def fresh():
+        g.manual_seed(3281)
+        c8 = fill_f8_cache(cfg, F8_GATE_ROWS, DECODE_32K_CACHE, g, 32768)
+        tok = torch.randint(0, cfg.vocab_size,
+                            (F8_GATE_ROWS, 1) + frames_of(cfg),
+                            generator=g, device=CUDA, dtype=torch.int32)
+        return c8, tok
+
+    def plain_attention(q, k, v, cur, *, window=None):
+        return decode_attention_cached_plain(q, k, v, cur, window=window)
+
+    # (b) first, on its own two e4m3 caches: the kernel's run and the
+    # plain version's
+    c8, tok = fresh()
+    cp = {k: v.clone() for k, v in c8.items()}
+    kernel_attention = A.decode_attention_cached
+    plain_errs, scale = [], []
+    for _ in range(F8_STEPS):
+        l8, c8, _ = step(params, tok, c8)
+        A.decode_attention_cached = plain_attention
+        try:
+            lp, cp, _ = step(params, tok, cp)
+        finally:
+            A.decode_attention_cached = kernel_attention
+        plain_errs.append(max_err(l8, lp))
+        scale.append(float(l8.float().abs().max()))
+        tok = l8[:, -1].argmax(-1)[:, None].to(torch.int32)
+    del c8, cp
+    torch.cuda.empty_cache()
+
+    # the gate and (a), from the same cache and first token
+    c8, tok = fresh()
+    cr = {k: v.clone() if k == "cur_len" else v.to(torch.bfloat16)
+          for k, v in c8.items()}
+    cb = {k: v.clone() for k, v in cr.items()}
+    write = A.update_cache
+
+    def rounded(cache, new, cur_len, *, window=None):
+        return write(cache, new.to(F8).to(new.dtype), cur_len, window=window)
+    equal, errs, oks = [], [], []
+    for _ in range(F8_STEPS):
+        l8, c8, _ = step(params, tok, c8)
+        A.update_cache = rounded
+        try:
+            lr, cr, _ = step(params, tok, cr)
+        finally:
+            A.update_cache = write
+        lb, cb, _ = step(params, tok, cb)
+        equal.append(bool(torch.equal(l8, lr)))
+        errs.append(max_err(l8, lb))
+        oks.append(close(l8, lb, torch.bfloat16))
+        tok = l8[:, -1].argmax(-1)[:, None].to(torch.int32)
+    log(f"f8 cache gate ({F8_GATE_ROWS} rows, {F8_STEPS} steps): e4m3 step "
+        f"== bf16 step on the dequantized cache with e4m3-rounded writes, "
+        f"bit for bit: {equal}; against bf16 writes, logits max abs err "
+        f"{[f'{e:.3g}' for e in errs]} (TOL {TOL[torch.bfloat16]}, within: "
+        f"{oks}); the witness, e4m3 step with decode_attention's plain "
+        f"version against the kernel's, logits max abs err "
+        f"{[f'{e:.3g}' for e in plain_errs]}; logits max abs "
+        f"{[f'{x:.3g}' for x in scale]}")
+    if not all(equal):
+        fail(f"f8 cache gate: the e4m3 step's logits differ from the bf16 "
+             f"step's on the same cache values: {equal}")
+    del c8, cr, cb
+    return dict(gate_rows=F8_GATE_ROWS, gate_bit_equal=equal,
+                gate_bf16_writes_max_abs_err=errs,
+                gate_bf16_writes_within_tol=oks,
+                witness_plain_attention_max_abs_err=plain_errs,
+                logits_max_abs=scale)
+
+
+# ------------------------------------------------------ dryrun phase ---
+
+def dryrun_phase() -> dict:
+    """``python -m repro_torch.launch.dryrun --all`` (10 archs x 4 shapes x
+    2 production meshes, traced on meta in parallel processes: host work
+    only) into a temporary file; prints the number traced and report.py's
+    tables, and fails on any combination that does not trace."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import report
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "dryrun.json"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--out", str(out)],
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+            capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        recs = json.loads(out.read_text()) if out.exists() else []
+    if proc.returncode != 0 or len(recs) != 80:
+        fail(f"dryrun --all: exit {proc.returncode}, {len(recs)} of 80 "
+             f"traced:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    log(f"dryrun --all: {len(recs)} of 80 traced in {wall:.1f} s "
+        f"({os.cpu_count()} cores); slowest traces "
+        f"{sorted((r['trace_s'], r['arch'], r['shape'], r['mesh']) for r in recs)[-3:]}")
+    log("## Dry-run records\n" + report.dryrun_table(recs))
+    log("## Roofline (single-pod)\n" + report.roofline_table(recs))
+    return dict(traced=len(recs), wall_s=wall, cores=os.cpu_count(),
+                trace_s_total=sum(r["trace_s"] for r in recs))
 
 
 # --------------------------------------------------- durability phase ---
@@ -3458,7 +3898,9 @@ def main() -> int:
         log(f"card: {card}")
         t0 = time.perf_counter()
         build.build()
-        log(f"built kernels in {time.perf_counter() - t0:.1f} s")
+        log(f"built kernels in {time.perf_counter() - t0:.1f} s; each "
+            f"nvcc unit's wall from the common start: "
+            f"{[ln[3:] for ln in build.build_log.splitlines() if ln.startswith('== ')]}")
         ptxas = ptxas_report(build.build_log)
         for f in ptxas:
             log(f"  ptxas: {f['source']} {f['function'][:90]}: "
@@ -3584,6 +4026,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         results[AUDIO] = audio_served(ARCHS[AUDIO])
         torch.cuda.empty_cache()
+    # the planning experiments' e4m3 cache, at decode_32k's cache length
+    with Phase(f"f8 cache {AUDIO} decode_32k"), torch.no_grad():
+        f8_cache = f8_cache_phase(ARCHS[AUDIO])
+        results[f"{AUDIO} f8 decode_32k"] = {
+            "e4m3": {"launches": f8_cache["launches"]}}
+        cases["decode_attention"].append(f8_cache["served_kernel_case"])
+    with Phase("dryrun"):
+        dry = dryrun_phase()
 
     # training: the one kernel on its path is grouped_ffn, forward and
     # backward (the train step's counters are the backward's launches)
@@ -3639,7 +4089,8 @@ def main() -> int:
                       "bf16_check": bf16_check, "profile": prof,
                       "graphs": graphs, "serve_cli": serve_cli,
                       "durability": durability,
-                      "ep": ep, "train": train, "card": card}),
+                      "ep": ep, "train": train, "f8_cache": f8_cache,
+                      "dryrun": dry, "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -99,8 +99,15 @@ def dense_sampler(seed: int, dtype: torch.dtype, device: DeviceLike,
                   generator: Optional[torch.Generator]):
     """(device, dense): ``dense(shape, dt=dtype, scale=0.02)`` draws
     scale * N(0, 1) in f32 from ``generator`` (a new one seeded with
-    ``seed`` when None) and casts it to dt."""
+    ``seed`` when None) and casts it to dt. On the meta device, which
+    has no generator, it gives an empty tensor of the shape and dtype:
+    a tree of meta tensors is the parameters' shapes and nothing else
+    (``launch/dryrun.py`` traces a step over it)."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        def empty(shape, dt=dtype, scale=0.02):
+            return torch.empty(shape, dtype=dt, device=dev)
+        return dev, empty
     g = generator
     if g is None:
         g = torch.Generator(device=dev)

@@ -202,7 +202,8 @@ def _ep_layer(x, idx, w, w1, w3, w2, tabs, *, num_shards: int,
     lsl = tabs["local_slot"][sidx[:, :, None], recv_e.clamp(0, E - 1)]
     grp = torch.where(recv_e >= 0, sidx[:, :, None] * cap + lsl, -1)
     grp = grp.reshape(S * S * M, 1)
-    plan = dispatch_plan(grp, (grp >= 0).float(), S * cap, block_t=bt)
+    plan = dispatch_plan(grp, (grp >= 0).float(), S * cap, block_t=bt,
+                         pad_shards=1)
     plan = plan._replace(
         tile_eid=tabs["local_eids"].reshape(S * cap)[plan.tile_eid.long()])
     xs = gather_tokens(recv_x.reshape(S * S * M, d), plan)

@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Optional
 
@@ -79,17 +80,27 @@ def build() -> Path:
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
+        t0 = time.perf_counter()
         for src in _sources():
             obj = Path(tmp) / (src.stem + ".o")
+            log = open(Path(tmp) / (src.stem + ".log"), "w+")
             cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
                    "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+            procs.append((src, obj, log, subprocess.Popen(
+                cmd, stdout=log, stderr=subprocess.STDOUT)))
+        # each unit's wall time from the common start, for the report
+        ended = {}
+        while len(ended) < len(procs):
+            for src, _, _, p in procs:
+                if src.name not in ended and p.poll() is not None:
+                    ended[src.name] = time.perf_counter() - t0
+            time.sleep(0.05)
         logs, failed = [], []
-        for src, _, p in procs:
-            text, _ = p.communicate()
-            logs.append(f"== {src.name}\n{text}")
+        for src, _, log, p in procs:
+            log.seek(0)
+            logs.append(f"== {src.name} ({ended[src.name]:.1f} s)\n"
+                        f"{log.read()}")
+            log.close()
             if p.returncode != 0:
                 failed.append(src.name)
         build_log = "\n".join(logs)
@@ -98,7 +109,7 @@ def build() -> Path:
         tmp_so = Path(tmp) / out.name
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_so),
-             *[str(o) for _, o, _ in procs]],
+             *[str(o) for _, o, _, _ in procs]],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"link failed:\n{link.stdout}")
@@ -129,6 +140,12 @@ def stream_ptr(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
 
+
+# Where a wrapper takes its kernel's plain version: the CPU, and the meta
+# device, on which the plain version only propagates shapes and dtypes
+# (a step traced at full size for its shapes, launch/dryrun.py). A CUDA
+# tensor takes the kernel or the wrapper raises.
+PLAIN_DEVICES = ("cpu", "meta")
 
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 

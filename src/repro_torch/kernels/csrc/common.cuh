@@ -29,8 +29,9 @@ __device__ __forceinline__ float silu_f32(float x) {
   return x / (1.0f + expf(-x));
 }
 
-// dtype codes shared with kernels/build.py
-enum DType { kF32 = 0, kBF16 = 1 };
+// dtype codes shared with kernels/build.py; kE4M3 is decode_attention's
+// float8_e4m3fn cache (read with bf16 queries)
+enum DType { kF32 = 0, kBF16 = 1, kE4M3 = 2 };
 
 // ---- Hopper building blocks shared by the tensor-core kernels ----------
 

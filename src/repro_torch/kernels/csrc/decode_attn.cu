@@ -17,14 +17,25 @@ int step_of(int dh) {
 }
 
 // The span unit of the split plan: positions a split block walks per
-// step at head dim dh in dtype, 0 where no instance exists. The host
-// cuts a row's positions into spans of whole steps (decode_attn.py
-// split_plan); this is the one place the lane geometry is known.
+// step at head dim dh in dtype (the cache's), 0 where no instance exists.
+// The host cuts a row's positions into spans of whole steps
+// (decode_attn.py split_plan); this is the one place the lane geometry
+// is known.
 extern "C" int decode_attention_step(int dh, int dtype) {
-  return dtype == kF32 ? step_of<float>(dh) : step_of<__nv_bfloat16>(dh);
+  switch (dtype) {
+    case kF32: return step_of<float>(dh);
+    case kBF16: return step_of<__nv_bfloat16>(dh);
+    case kE4M3:
+      return dh == 64    ? block_step<__nv_fp8_e4m3, 64>()
+             : dh == 128 ? block_step<__nv_fp8_e4m3, 128>()
+                         : 0;
+    default: return 0;
+  }
 }
 
-// q (B, T, H, dh), k / v (B, C, Hkv, dh) in one dtype, 16-byte aligned;
+// q (B, T, H, dh), k / v (B, C, Hkv, dh), 16-byte aligned, in one dtype
+// (kF32, kBF16) or, for kE4M3, q in bf16 and k / v in float8_e4m3fn; the
+// output in q's dtype;
 // cur_len (B,) int32, query t of row b at position cur_len[b] + shift + t;
 // window 0 for a full cache, else 1 <= window <= C positions seen per
 // query; the T * H / Hkv queries of a KV head in n_qt tiles of nq <= 8;
@@ -48,6 +59,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   const DecodeArgs a{q, k, v, cur_len, part, out, B, C, T, H, Hkv, window,
                      shift, nq, n_qt, n_split, span, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kE4M3)
+    return dh == 64 ? decode_attn_e4m3_dh64(a, s)
+                    : decode_attn_e4m3_dh128(a, s);  // step_of refused others
   switch (dh) {
     case 16: return decode_attn_dh16(a, dtype, s);
     case 32: return decode_attn_dh32(a, dtype, s);

@@ -57,7 +57,29 @@
 //      launch, it waits on the split pass only before reading the
 //      scratch.
 // Products are IEEE f32 (q, k, v converted exactly from their dtype).
+//
+// The e4m3 instance (head dims 64 and 128, the float8 caches the JAX
+// package's planning experiments ask for: musicgen-large and
+// qwen3-moe-235b-a22b at decode_32k) reads a cache of
+// torch.float8_e4m3fn with q and the output in bf16: what
+// decode_attention_cached_plain computes by dequantizing the cache to
+// bf16 first, which is exact (every e4m3 value is a bf16 value, and an
+// f32 one). The cache is never copied: each lane loads 8 bytes of a key
+// or value row (8 elements) and widens them in registers, a pair at a
+// time, with cvt.rn.f16x2.e4m3x2 (NaN stays NaN) and an exact f16 -> f32
+// conversion. The scores, softmax and merge are the bf16 instance's.
+// Loads are 8 bytes and not 16 because a lane holding 16 elements would
+// hold 16 q and 16 accumulator floats per query, 256 registers at a tile
+// of 8 queries (qwen3-moe-235b's 16 queries per KV head), past the 255 a
+// thread has. So a lane covers as many elements as in bf16, the lane
+// geometry and block_step are bf16's at the same head dim (64: 8 lanes a
+// row, 64 positions a block step; 128: 16 lanes, 32 positions), and
+// split_plan gives the same spans; the bytes a position costs halve.
 #pragma once
+#include <cuda_fp8.h>
+
+#include <type_traits>
+
 #include "common.cuh"
 
 // one call's operands and plan (see the entry point below); window 0 is
@@ -85,45 +107,63 @@ constexpr int pow2_at_least(int n) {
 // f32) the group is padded to the next one and its last LPR - CPR lanes
 // are dead: they load nothing, add 0 to the dot products and store no
 // accumulator (PAD).
+// A lane's load (a chunk) is 16 bytes of f32 or bf16, 8 bytes of e4m3.
 template <typename T, int DH>
 struct Geo {
-  static constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16 B
-  static constexpr int CPR = DH / VEC;             // 16-byte chunks per row
+  using Chunk =
+      typename std::conditional<sizeof(T) == 1, uint2, uint4>::type;
+  static constexpr int CB = (int)sizeof(Chunk);    // bytes per chunk
+  static constexpr int VEC = CB / (int)sizeof(T);  // elements per chunk
+  static constexpr int CPR = DH / VEC;             // chunks per row
   static constexpr int LPR = CPR < 32 ? pow2_at_least(CPR) : 32;  // lanes
   static constexpr int NCH = CPR / LPR > 0 ? CPR / LPR : 1;  // chunks/lane
   static constexpr int EPL = NCH * VEC;            // elements per lane
   static constexpr int PPW = 32 / LPR;             // positions per warp load
   static constexpr bool PAD = LPR * NCH != CPR;    // dead lanes in a group
-  static_assert(DH % VEC == 0, "a row is whole 16-byte chunks");
+  static_assert(DH % VEC == 0, "a row is whole chunks");
   static_assert(!PAD || NCH == 1, "padded groups hold one chunk a lane");
 };
 
 // Positions a lane loads per step: U, or U / 2 where the tile's q and
 // accumulators (2 MAXQ EPL floats) and U steps of key and value chunks
-// (8 U NCH registers) would pass 160 of the 255 registers, the rest
+// (2 U NCH CB / 4 registers) would pass 160 of the 255 registers, the rest
 // going to addresses and the softmax: at f32, head dim 256, 8 queries
 // (128 + 64) ptxas spilled; bf16 there (128 + 32) does not. The span
 // unit (block_step) stays at U, a multiple of U / 2.
 template <typename T, int DH, int MAXQ>
 __host__ __device__ constexpr int lane_positions() {
-  return 2 * MAXQ * Geo<T, DH>::EPL + 8 * U * Geo<T, DH>::NCH > 160 ? U / 2
-                                                                     : U;
+  using G = Geo<T, DH>;
+  return 2 * MAXQ * G::EPL + 2 * U * G::NCH * (G::CB / 4) > 160 ? U / 2 : U;
 }
 
-// element e of a lane's NCH 16-byte chunks, exactly in f32
-template <typename T, int NCH>
-__device__ __forceinline__ float elem(const uint4 (&r)[NCH], int e) {
+// element e of a lane's NCH chunks of T, exactly in f32 (an e4m3 pair is
+// widened by one cvt, which the compiler shares between its two elements)
+template <typename T, int NCH, typename C>
+__device__ __forceinline__ float elem(const C (&r)[NCH], int e) {
   if constexpr (sizeof(T) == 4) {
     const uint4 v = r[e / 4];
     const uint32_t w = (e & 3) == 0 ? v.x : (e & 3) == 1 ? v.y
                        : (e & 3) == 2 ? v.z : v.w;
     return __uint_as_float(w);
-  } else {
+  } else if constexpr (sizeof(T) == 2) {
     const uint4 v = r[e / 8];
     const int i = (e & 7) >> 1;
     const uint32_t w = i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
     return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  } else {
+    const uint2 v = r[e / 8];
+    const uint32_t w = (e & 4) ? v.y : v.x;
+    const __nv_fp8x2_storage_t pair =
+        (__nv_fp8x2_storage_t)((e & 2) ? (w >> 16) : (w & 0xffffu));
+    const float2 f =
+        __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
+    return (e & 1) ? f.y : f.x;
   }
+}
+
+template <typename C>
+__device__ __forceinline__ C zero_chunk() {
+  return C{};
 }
 
 // Query t of a row at position cur + t sees positions [lo, hi]: under a
@@ -138,6 +178,8 @@ __device__ __forceinline__ int live_hi(int cur, int t, int C) {
   return WIN ? cur + t : min(cur + t, C - 1);
 }
 
+// TQ is the type of q and of the output, T the cache's (TQ = T, or bf16
+// over an e4m3 cache).
 // WIN: a rolling window (positions wrap, slot = position mod C); else a
 // full cache, where query t sees slots [0, min(cur + t, C - 1)] and a
 // position is its slot. ONE_T: every query of a tile has the same t
@@ -146,15 +188,19 @@ __device__ __forceinline__ int live_hi(int cur, int t, int C) {
 // compiled in. Two-query tiles (every decode step of granite-moe and
 // zamba2) fit in 128 registers; asking for 4 blocks per SM keeps ptxas
 // from spilling the f32 instances at 72-80 registers.
-template <typename T, int DH, int MAXQ, bool WIN, bool ONE_T>
+template <typename TQ, typename T, int DH, int MAXQ, bool WIN, bool ONE_T>
 __global__ void __launch_bounds__(NW * 32, MAXQ <= 2 ? 4 : 1)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+decode_split_kernel(const TQ* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const int* __restrict__ cur_len,
                     float* __restrict__ part, int C, int nt, int H, int Hkv,
                     int rep, int nq, int n_qt, int window, int shift,
                     int span, float scale) {
   using G = Geo<T, DH>;
+  using Chunk = typename G::Chunk;
   constexpr int EPL = G::EPL, NCH = G::NCH, VEC = G::VEC;
+  // q's EPL elements of a lane: QCH 16-byte chunks of TQ
+  constexpr int QVEC = 16 / (int)sizeof(TQ), QCH = EPL / QVEC;
+  static_assert(EPL % QVEC == 0, "a lane's q is whole 16-byte chunks");
   pdl_launch_dependents();  // the merge may launch and wait for us
   const int split = blockIdx.x, b = blockIdx.z;
   // one tile per KV head (every T = 1 call with H / Hkv <= 8) skips the
@@ -171,17 +217,17 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // query i = t * rep + r of KV head g is row t * H + g * rep + r of the
   // T * H; q's loads are issued before cur_len[b] is known, so the two
   // DRAM round trips overlap
-  uint4 qraw[MAXQ][NCH];
+  uint4 qraw[MAXQ][QCH];
   int tq[MAXQ];  // each query's offset t in the verify block
 #pragma unroll
   for (int j = 0; j < MAXQ; ++j) {
     const int i = i0 + min(j, nqi - 1);
     tq[j] = ONE_T ? t_lo : i / rep;
     const int row = tq[j] * H + g * rep + (i - tq[j] * rep);
-    const T* qr = q + ((size_t)b * TH + row) * DH + c * EPL;
+    const TQ* qr = q + ((size_t)b * TH + row) * DH + c * EPL;
 #pragma unroll
-    for (int n = 0; n < NCH; ++n)
-      qraw[j][n] = lane_live ? *reinterpret_cast<const uint4*>(qr + n * VEC)
+    for (int n = 0; n < QCH; ++n)
+      qraw[j][n] = lane_live ? *reinterpret_cast<const uint4*>(qr + n * QVEC)
                              : make_uint4(0u, 0u, 0u, 0u);
   }
   const int cur = cur_len[b] + shift;
@@ -206,7 +252,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < MAXQ; ++j)
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qv[j][e] = elem<T, NCH>(qraw[j], e) * scale;
+    for (int e = 0; e < EPL; ++e) qv[j][e] = elem<TQ, QCH>(qraw[j], e) * scale;
   float m[MAXQ], l[MAXQ], acc[MAXQ][EPL];
 #pragma unroll
   for (int j = 0; j < MAXQ; ++j) {
@@ -225,7 +271,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int UL = lane_positions<T, DH, MAXQ>();
   constexpr int WSTEP = UL * G::PPW;  // positions per warp per step
   for (int p0 = p_begin + w * WSTEP; p0 < p_end; p0 += NW * WSTEP) {
-    uint4 kr[UL][NCH], vr[UL][NCH];
+    Chunk kr[UL][NCH], vr[UL][NCH];
     int pos[UL];
     bool ok[UL];
 #pragma unroll
@@ -242,10 +288,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const bool ld = ok[u] && lane_live;
 #pragma unroll
       for (int n = 0; n < NCH; ++n) {
-        kr[u][n] = ld ? *reinterpret_cast<const uint4*>(k + at + n * VEC)
-                      : make_uint4(0u, 0u, 0u, 0u);
-        vr[u][n] = ld ? *reinterpret_cast<const uint4*>(v + at + n * VEC)
-                      : make_uint4(0u, 0u, 0u, 0u);
+        kr[u][n] = ld ? *reinterpret_cast<const Chunk*>(k + at + n * VEC)
+                      : zero_chunk<Chunk>();
+        vr[u][n] = ld ? *reinterpret_cast<const Chunk*>(v + at + n * VEC)
+                      : zero_chunk<Chunk>();
       }
     }
 #pragma unroll
@@ -395,37 +441,37 @@ decode_merge_kernel(const float* __restrict__ part, T* __restrict__ out,
   }
 }
 
-template <typename T, int DH, int MAXQ, bool WIN, bool ONE_T>
+template <typename TQ, typename T, int DH, int MAXQ, bool WIN, bool ONE_T>
 void launch_split(const DecodeArgs& a, cudaStream_t s) {
   const dim3 grid(a.n_split, a.Hkv * a.n_qt, a.B);
-  decode_split_kernel<T, DH, MAXQ, WIN, ONE_T><<<grid, NW * 32, 0, s>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+  decode_split_kernel<TQ, T, DH, MAXQ, WIN, ONE_T><<<grid, NW * 32, 0, s>>>(
+      static_cast<const TQ*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const int*>(a.cur_len),
       static_cast<float*>(a.part), a.C, a.nt, a.H, a.Hkv, a.H / a.Hkv, a.nq,
       a.n_qt, a.window, a.shift, a.span, a.scale);
 }
 
-template <typename T, int DH, int MAXQ>
+template <typename TQ, typename T, int DH, int MAXQ>
 void launch_tiles(const DecodeArgs& a, cudaStream_t s) {
   // tiles of nq queries, cut at multiples of nq, each lie within one t
   // when T = 1 or nq divides H / Hkv; a rolling window (decode steps of
   // sliding-window models) takes the general kernel
   if (a.window > 0)
-    launch_split<T, DH, MAXQ, true, false>(a, s);
+    launch_split<TQ, T, DH, MAXQ, true, false>(a, s);
   else if (a.nt == 1 || (a.H / a.Hkv) % a.nq == 0)
-    launch_split<T, DH, MAXQ, false, true>(a, s);
+    launch_split<TQ, T, DH, MAXQ, false, true>(a, s);
   else
-    launch_split<T, DH, MAXQ, false, false>(a, s);
+    launch_split<TQ, T, DH, MAXQ, false, false>(a, s);
 }
 
-template <typename T, int DH>
+template <typename TQ, typename T, int DH>
 int launch_dh(const DecodeArgs& a, cudaStream_t s) {
   if (a.nq <= 2)
-    launch_tiles<T, DH, 2>(a, s);
+    launch_tiles<TQ, T, DH, 2>(a, s);
   else if (a.nq <= 4)
-    launch_tiles<T, DH, 4>(a, s);
+    launch_tiles<TQ, T, DH, 4>(a, s);
   else if (a.nq <= 8)
-    launch_tiles<T, DH, 8>(a, s);
+    launch_tiles<TQ, T, DH, 8>(a, s);
   else
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaGetLastError();
@@ -433,9 +479,9 @@ int launch_dh(const DecodeArgs& a, cudaStream_t s) {
   const int smem =
       (2 * a.n_split + kMergeGroups * (DH + 1)) * (int)sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  err = launch_pdl(&decode_merge_kernel<T, DH>, dim3(a.nt * a.H, a.B),
+  err = launch_pdl(&decode_merge_kernel<TQ, DH>, dim3(a.nt * a.H, a.B),
                    dim3(DH * kMergeGroups), smem, s,
-                   static_cast<const float*>(a.part), static_cast<T*>(a.out),
+                   static_cast<const float*>(a.part), static_cast<TQ*>(a.out),
                    a.nt * a.H, a.n_split);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -448,8 +494,16 @@ int launch_dh(const DecodeArgs& a, cudaStream_t s) {
 // one unit they took 51 s to compile, 40 s longer than any other source.
 #define DECODE_ATTN_HEAD_DIM(DH)                                          \
   int decode_attn_dh##DH(const DecodeArgs& a, int dtype, cudaStream_t s) { \
-    return dtype == kF32 ? launch_dh<float, DH>(a, s)                      \
-                         : launch_dh<__nv_bfloat16, DH>(a, s);             \
+    return dtype == kF32                                                  \
+               ? launch_dh<float, float, DH>(a, s)                        \
+               : launch_dh<__nv_bfloat16, __nv_bfloat16, DH>(a, s);       \
+  }
+
+// The e4m3 instances (bf16 q and output over a float8_e4m3fn cache), one
+// unit per head dim too (decode_attn_e4m3_dh*.cu).
+#define DECODE_ATTN_E4M3_HEAD_DIM(DH)                                   \
+  int decode_attn_e4m3_dh##DH(const DecodeArgs& a, cudaStream_t s) {    \
+    return launch_dh<__nv_bfloat16, __nv_fp8_e4m3, DH>(a, s);           \
   }
 
 // Positions one split block walks per step (NW warps, U positions a
@@ -466,3 +520,5 @@ int decode_attn_dh64(const DecodeArgs& a, int dtype, cudaStream_t s);
 int decode_attn_dh80(const DecodeArgs& a, int dtype, cudaStream_t s);
 int decode_attn_dh128(const DecodeArgs& a, int dtype, cudaStream_t s);
 int decode_attn_dh256(const DecodeArgs& a, int dtype, cudaStream_t s);
+int decode_attn_e4m3_dh64(const DecodeArgs& a, cudaStream_t s);
+int decode_attn_e4m3_dh128(const DecodeArgs& a, cudaStream_t s);

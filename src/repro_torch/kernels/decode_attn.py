@@ -13,8 +13,14 @@ Two entry points reach the one kernel:
 
 A CPU tensor goes to the plain version, a CUDA tensor to the kernel;
 ``decode_attention.launches`` counts the kernel's launches from either.
-The kernel has no backward: on the card an input that requires grad
-raises (the plain versions keep their autograd).
+A meta tensor (a step traced for its shapes, ``launch/dryrun.py``) goes
+to the plain version too, which on meta only propagates shapes and
+dtypes. The kernel has no backward: on the card an input that requires
+grad raises (the plain versions keep their autograd).
+
+A cache of torch.float8_e4m3fn is read by the kernel's e4m3 instance
+(head dims 64 and 128), with q in bf16; any other 1-byte cache dtype
+(e5m2, integers) has no instance and is refused on the card.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ import torch
 from repro_torch.kernels import build
 
 _HEAD_DIMS = (16, 32, 64, 80, 128, 256)   # csrc/decode_attn_dh*.cu
+_E4M3_HEAD_DIMS = (64, 128)               # csrc/decode_attn_e4m3_dh*.cu
+E4M3_CODE = 2     # csrc/common.cuh kE4M3: bf16 q over an e4m3 cache
 _MAX_TILE = 8     # queries of one KV head the kernel holds in registers
 _BLOCKS_PER_SM = 16      # the most split blocks per SM a full cache gives
 _NEG = -1e30
@@ -156,15 +164,20 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if k.shape != (B, C, Hkv, dh) or v.shape != k.shape:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if H % Hkv or dh not in _HEAD_DIMS:
+    e4m3 = k.dtype == torch.float8_e4m3fn
+    dims = _E4M3_HEAD_DIMS if e4m3 else _HEAD_DIMS
+    if H % Hkv or dh not in dims:
         raise ValueError(f"decode_attention: H={H}, Hkv={Hkv}, dh={dh} "
-                         f"not supported (dh in {_HEAD_DIMS})")
+                         f"not supported (dh in {dims} for a {k.dtype} "
+                         f"cache)")
     if T > C:
         raise ValueError(f"decode_attention: {T} queries > cache {C}")
     if window is not None and window < 1:
         raise ValueError(f"decode_attention: window {window} < 1")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise ValueError("decode_attention: q, k, v must share a dtype")
+    if k.dtype != v.dtype or q.dtype != (torch.bfloat16 if e4m3
+                                         else k.dtype):
+        raise ValueError("decode_attention: q, k, v must share a dtype "
+                         "(q bf16 over an e4m3 cache)")
     cur = cur.to(device=q.device, dtype=torch.int32).contiguous()
     if cur.shape != (B,):
         raise ValueError(f"decode_attention: positions of shape "
@@ -180,7 +193,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     # window + T - 1 positions, each in slot position mod C
     win = 0 if window is None else min(window, C)
     nq, n_qt = query_tiles(T, H // Hkv)
-    code = build.dtype_code(q)
+    code = E4M3_CODE if e4m3 else build.dtype_code(q)
     n_split, span = split_plan(B * n_qt, win + T - 1 if win else C, Hkv,
                                block_step(dh, code),
                                _sm_count(q.device.index or 0))
@@ -201,7 +214,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash-decode attention, one query per row. q: (B, H, dh); k, v:
     (B, S, Hkv, dh); lengths: (B,) live cache length per row. Returns
     (B, H, dh)."""
-    if q.device.type == "cpu":
+    if q.device.type in build.PLAIN_DEVICES:
         return decode_attention_plain(q, k, v, lengths)
     if q.ndim != 3:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, want "
@@ -220,15 +233,23 @@ def decode_attention_cached(q: torch.Tensor, cache_k: torch.Tensor,
 
     A cache of another dtype than q's is read as the reference reads it:
     q is cast to the cache's dtype (on the card too), and the output
-    cast back. The card has no instance for a 1-byte (float8) cache and
-    refuses it; ``models.model.init_cache`` refuses such a cache on the
-    card before it is made."""
-    if q.device.type == "cpu":
+    cast back. An e4m3 cache is read as bf16 (the reference dequantizes
+    it to bf16 per use): q is cast to bf16 and the e4m3 instance widens
+    the cache in registers. The card has no instance for another 1-byte
+    dtype and refuses it; ``models.model.init_cache`` refuses such a
+    cache on the card before it is made."""
+    if q.device.type in build.PLAIN_DEVICES:
         return decode_attention_cached_plain(q, cache_k, cache_v, cur_len,
                                              window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention: no kernel for {q.device}")
+    if cache_k.dtype == torch.float8_e4m3fn:
+        qb = q.to(torch.bfloat16)
+        return _launch(qb, cache_k, cache_v, cur_len, window, 0).to(q.dtype)
     if cache_k.element_size() < 2:
-        raise ValueError(f"decode_attention: no {cache_k.dtype} (e4m3) "
-                         f"instance for a 1-byte cache on the card")
+        raise ValueError(f"decode_attention: no {cache_k.dtype} instance "
+                         f"for a 1-byte cache on the card (only "
+                         f"torch.float8_e4m3fn)")
     if q.dtype != cache_k.dtype:
         return _launch(q.to(cache_k.dtype), cache_k, cache_v, cur_len,
                        window, 0).to(q.dtype)

@@ -2,8 +2,9 @@
 sort-based grouped expert FFN (``grouped_ffn``) and its gradient
 (``grouped_ffn_bwd``), each with its plain PyTorch version beside it.
 
-A wrapper sends a CPU tensor to the plain version and a CUDA tensor to
-the hand-written kernel (``csrc/moe_ffn.cu``, ``csrc/grouped_ffn.cu``,
+A wrapper sends a CPU or meta tensor to the plain version (on meta it
+only propagates shapes) and a CUDA tensor to the hand-written kernel
+(``csrc/moe_ffn.cu``, ``csrc/grouped_ffn.cu``,
 ``csrc/grouped_ffn_bwd.cu``); there is no other fallback. Each wrapper
 counts its launches in a plain integer attribute, ``moe_ffn.launches``,
 ``grouped_ffn.launches``, ``grouped_ffn_bwd.launches``.
@@ -74,7 +75,7 @@ def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     Checking the bound on the device would cost a host sync per layer;
     the tests hold every policy to it instead.
     """
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return moe_ffn_plain(x, w1, w3, w2, combine, active)
     _require(x.device.type == "cuda", f"moe_ffn: no kernel for {x.device}")
     T, d = x.shape
@@ -164,7 +165,7 @@ def _grouped_ffn(xs, w1, w3, w2, tile_eid, tile_valid, *,
                  block_t: int) -> torch.Tensor:
     """grouped_ffn's forward: the plain version on the CPU, the kernel on
     the card."""
-    if xs.device.type == "cpu":
+    if xs.device.type in build.PLAIN_DEVICES:
         return grouped_ffn_plain(xs, w1, w3, w2, tile_eid, tile_valid,
                                  block_t=block_t)
     _require(xs.device.type == "cuda",
@@ -280,7 +281,7 @@ def grouped_ffn_bwd(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     (csrc/grouped_ffn_bwd.cu) in IEEE f32 on the CUDA cores, with f32
     scratches of (P, f) for dA, dB and H, and no atomics, so two calls
     give the same bits; on the CPU the plain version."""
-    if xs.device.type == "cpu":
+    if xs.device.type in build.PLAIN_DEVICES:
         return grouped_ffn_bwd_plain(xs, w1, w3, w2, tile_eid, tile_valid,
                                      dys, block_t=block_t)
     _require(xs.device.type == "cuda",

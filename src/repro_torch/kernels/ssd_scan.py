@@ -3,8 +3,9 @@ PyTorch version.
 
 The contract is the JAX package's ``models/ssm.py ssd_chunked``: Bm and
 Cm per group (head h reads group h // (nh // g)), an optional initial
-state, a ragged last chunk. A CPU tensor goes to the plain version, a
-CUDA tensor to the kernel; ``ssd_scan.launches`` counts the kernel's
+state, a ragged last chunk. A CPU or meta tensor goes to the plain
+version (on meta it only propagates shapes), a CUDA tensor to the
+kernel; ``ssd_scan.launches`` counts the kernel's
 calls (one call is the kernel's three passes). The kernel has no
 backward: on the card an input that requires grad raises, so an SSM or
 hybrid train step fails there instead of losing its gradient (the plain
@@ -92,7 +93,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     device: x, Bm, Cm f32 or bf16 (one dtype), dt, A and init_state f32,
     (hd, ds) one of ``_SHAPES``, all contiguous; x, Bm, Cm and init_state
     16-byte aligned (the kernel reads them in 16-byte vectors)."""
-    if x.device.type == "cpu":
+    if x.device.type in build.PLAIN_DEVICES:
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
                               init_state=init_state)
     if x.device.type != "cuda":

@@ -51,8 +51,9 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
     """{tokens, prefix_embeds?, cache?} as meta tensors: int32 tokens (B,
     S) ((B, S, K) audio; S = 1 at decode), prefix embeddings (B, P, d) in
     ``dtype``, and at decode the cache ``init_cache`` would build, in
-    ``cache_dtype`` (default ``dtype``). A float8 cache is fine here:
-    only the card refuses one."""
+    ``cache_dtype`` (default ``dtype``). Any float8 cache is fine on
+    meta; the card reads an e4m3 one and refuses other 1-byte dtypes
+    (``models.model.check_cache_dtype``)."""
     B = shape.global_batch
     out: Dict = {}
     tok = dict(dtype=torch.int32, device=META)

@@ -33,12 +33,17 @@ LINK_BW = 450e9          # bytes/s per direction, NVLink 4
 
 
 def roofline_terms(flops: float, bytes_accessed: float,
-                   coll_bytes: float) -> Dict[str, float]:
+                   coll_bytes: Optional[float]) -> Dict:
+    """The three terms and the dominant one. coll_bytes None (no
+    collective figure: the port's planning records, ``launch/dryrun.py``)
+    gives collective_s None and the dominant of compute and memory."""
     t_c = flops / PEAK_FLOPS
     t_m = bytes_accessed / HBM_BW
-    t_x = coll_bytes / LINK_BW
-    dom = max(("compute", t_c), ("memory", t_m), ("collective", t_x),
-              key=lambda kv: kv[1])[0]
+    t_x = None if coll_bytes is None else coll_bytes / LINK_BW
+    terms = [("compute", t_c), ("memory", t_m)]
+    if t_x is not None:
+        terms.append(("collective", t_x))
+    dom = max(terms, key=lambda kv: kv[1])[0]
     return {"compute_s": t_c, "memory_s": t_m, "collective_s": t_x,
             "dominant": dom}
 
@@ -302,9 +307,12 @@ def step_terms(record: Dict, num_devices: int,
     collective_bytes_inside_loop / _outside_loop): analytic compute and
     memory terms, and the record's collective bytes with the inside-loop
     share scaled by the layer trip count. The row's keys are the
-    reference's ("hlo_*_raw" hold the record's own figures)."""
-    row: Dict = {"hlo_flops_per_device_raw": record["flops_per_device"],
-                 "hlo_bytes_per_device_raw": record["bytes_per_device"]}
+    reference's ("hlo_*_raw" hold the record's own figures). A record
+    without those XLA figures (the port's planning records, which have
+    no compiled program) gives None for them and for the collective
+    term, and the dominant of compute and memory."""
+    row: Dict = {"hlo_flops_per_device_raw": record.get("flops_per_device"),
+                 "hlo_bytes_per_device_raw": record.get("bytes_per_device")}
     if cfg is None or shape is None:
         row.update(roofline_terms(record["flops_per_device"],
                                   record["bytes_per_device"],
@@ -321,8 +329,10 @@ def step_terms(record: Dict, num_devices: int,
     if "collective_bytes_inside_loop" in record:
         coll = (record["collective_bytes_inside_loop"] * trips
                 + record["collective_bytes_outside_loop"])
-    else:
+    elif record.get("collective_bytes_per_device") is not None:
         coll = record["collective_bytes_per_device"] * trips
+    else:
+        coll = None
     terms = roofline_terms(flops_g / num_devices, bytes_g / num_devices,
                            coll)
     row.update(terms)

@@ -61,8 +61,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     forward only, in f32, one chunk of queries at a time so the score
     tensor is at most (B, H, q_chunk, S).
 
-    q: (B, S, H, dh); k, v: (B, S, Hkv, dh). Returns (B, S, H, dh)."""
+    q: (B, S, H, dh); k, v: (B, S, Hkv, dh). Returns (B, S, H, dh).
+    On the meta device (a step traced for its shapes) the queries go in
+    one chunk: there is no memory to bound, and each chunk's ops cost
+    the trace their shape checks."""
     B, S, H, dh = q.shape
+    if q.device.type == "meta":
+        q_chunk = S
     rep = H // k.shape[2]
     kf = k.float().repeat_interleave(rep, dim=2)
     vf = v.float().repeat_interleave(rep, dim=2)
@@ -128,7 +133,9 @@ def update_cache(cache: torch.Tensor, new: torch.Tensor, cur_len, *,
     IN PLACE and return the cache. cache: (B, C, Hkv, dh); new:
     (B, T, Hkv, dh). Rolling-window caches wrap modulo C; full caches
     assume cur_len+T <= C (a row past the end is dropped, which is what
-    the JAX package's select-based write does)."""
+    the JAX package's select-based write does). The new rows are cast
+    by ``.to``: into a float8 cache that rounds to nearest even, as
+    JAX's ``astype``."""
     B, T = new.shape[0], new.shape[1]
     C = cache.shape[1]
     cur_b = _cur_rows(cur_len, B, cache.device)[:, 0]

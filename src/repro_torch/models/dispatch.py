@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import grouped_ffn
+from repro_torch.sharding import current_mesh, model_axis_size
 
 
 def _round_up(x: int, m: int) -> int:
@@ -56,11 +57,17 @@ class DispatchPlan(NamedTuple):
 def dispatch_plan(idx: torch.Tensor, w: torch.Tensor, num_experts: int, *,
                   block_t: Optional[int] = None,
                   capacity: Optional[int] = None,
-                  max_active: Optional[int] = None) -> DispatchPlan:
+                  max_active: Optional[int] = None,
+                  pad_shards: Optional[int] = None) -> DispatchPlan:
     """Build the sorted grouped-dispatch layout. idx/w: (T, k); pairs with
     idx == -1 or w == 0 are dropped. capacity clamps each expert's rows
     (first tokens kept); max_active bounds the occupied experts (the
-    XShare budget) and so the padded buffer."""
+    XShare budget) and so the padded buffer. pad_shards: the tile axis
+    is padded to a multiple of block_t * pad_shards (the expert-parallel
+    shard count), so that the layout could split over the shards; None
+    reads the ambient mesh context (``sharding.model_axis_size``, 1
+    outside a context). The EP executor passes 1: its per-shard plans
+    must not take the outer mesh's padding."""
     T, k = idx.shape
     E = num_experts
     N = T * k
@@ -68,6 +75,10 @@ def dispatch_plan(idx: torch.Tensor, w: torch.Tensor, num_experts: int, *,
     bt = default_block_t(N, E) if block_t is None else block_t
     occ_bound = min(E, N) if max_active is None else min(max_active, E, N)
     P = _round_up(N + occ_bound * (bt - 1), bt)
+    if pad_shards is None:
+        pad_shards = model_axis_size() if current_mesh() is not None else 1
+    if pad_shards > 1:
+        P = _round_up(P, bt * pad_shards)
     num_tiles = P // bt
 
     flat_e = idx.reshape(N).to(torch.int32)

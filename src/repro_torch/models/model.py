@@ -337,15 +337,19 @@ def loss_fn(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------- cache ---
 
 def check_cache_dtype(dtype, device) -> None:
-    """Refuse, before anything is allocated, a 1-byte (float8) cache on
-    the card: decode_attention has no e4m3 instance to read it. The CPU
-    reads one through the plain version, dequantized per use as the JAX
-    package does."""
+    """Refuse, before anything is allocated, a 1-byte cache on the card
+    that decode_attention has no instance for: any but
+    torch.float8_e4m3fn (e5m2, integers). An e4m3 cache is read by the
+    kernel's e4m3 instance on the card; the CPU reads any float8 cache
+    through the plain version, dequantized per use as the JAX package
+    does."""
     if dtype is not None and device is not None \
-            and torch.device(device).type == "cuda" and dtype.itemsize < 2:
+            and torch.device(device).type == "cuda" and dtype.itemsize < 2 \
+            and dtype != torch.float8_e4m3fn:
         raise ValueError(
             f"a {dtype} KV cache cannot be read on the card: "
-            f"decode_attention has no e4m3 (1-byte) instance")
+            f"decode_attention's only 1-byte instance is "
+            f"torch.float8_e4m3fn")
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
@@ -357,7 +361,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype, *,
     ``conv_x`` / ``conv_B`` / ``conv_C`` (L, batch, K-1, ·) and the f32
     ``state`` (L, batch, nh, hd, ds); for the hybrid also the shared
     block's ``shared_k`` / ``shared_v`` (apps, batch, C, Hkv, dh). A
-    1-byte dtype on the card raises (check_cache_dtype)."""
+    1-byte dtype other than float8_e4m3fn raises on the card
+    (check_cache_dtype)."""
     _check_family(cfg)
     check_cache_dtype(dtype, device)
     win = effective_window(cfg, force_window=force_window)
@@ -443,7 +448,9 @@ def prefill(cfg: ArchConfig, params: Dict, tokens: torch.Tensor, *,
     """Process the prompt and build the decode cache. tokens: (B, S)
     (audio (B, S, K)), after prefix_embeds (B, P, d) when given, so the
     cache holds P + S positions; cache_dtype defaults to the
-    activations' (a 1-byte one raises on the card, before any work).
+    activations' (a 1-byte one other than float8_e4m3fn raises on the
+    card, before any work; an e4m3 cache is written as each layer's rows
+    rounded by ``.to``, round to nearest even as JAX's ``astype``).
     Returns (last-position logits (B, V) (audio (B, K, V)), cache,
     aux)."""
     check_cache_dtype(cache_dtype, tokens.device)

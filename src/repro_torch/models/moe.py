@@ -110,11 +110,13 @@ def route(p: Dict, x: torch.Tensor, moe: MoEConfig, policy: XSharePolicy,
     lb = E * (frac * (probs.sum(0) / denom)).sum() / moe.top_k
     counts = combine_matrix(idx, (w != 0.0).float(), E).sum(0)
     counts = counts.to(torch.int32)
+    # the counts in int32, JAX's dtype for them (its x64 is off)
     aux = {
-        "activated_experts": active.sum(),
-        "selected_set": mask.sum(),
-        "max_group_load": M.max_group_load(active, G),
-        "max_group_tokens": DSP.group_token_loads(counts, G).max(),
+        "activated_experts": active.sum(dtype=torch.int32),
+        "selected_set": mask.sum(dtype=torch.int32),
+        "max_group_load": M.max_group_load(active, G).to(torch.int32),
+        "max_group_tokens":
+            DSP.group_token_loads(counts, G).max().to(torch.int32),
         "gate_mass": M.gate_mass_captured(probs, mask),
         "lb_loss": lb,
     }

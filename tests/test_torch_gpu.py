@@ -404,7 +404,8 @@ def test_decode_attention_head_dim_80(cuda, dtype, T):
 
 def test_decode_attention_reads_a_bf16_cache_under_f32_queries(cuda):
     """q is cast to the cache's dtype, as the reference does; the output
-    comes back in q's dtype. A float8 cache is refused on the card."""
+    comes back in q's dtype. A float8_e5m2 cache has no instance and is
+    refused on the card (an e4m3 one has: the tests below)."""
     from repro_torch import kernels as K
     g = torch.Generator().manual_seed(12)
     q, k, v, cur = _cached_case(g, cuda, torch.bfloat16, 3, 5, 8, 2, 64,
@@ -415,9 +416,125 @@ def test_decode_attention_reads_a_bf16_cache_under_f32_queries(cuda):
     assert torch.equal(out, want)
     check(out, K.decode_attention_cached_plain(q.float(), k, v, cur),
           torch.bfloat16)
-    f8 = k.to(torch.float8_e4m3fn)
-    with pytest.raises(ValueError, match="e4m3"):
+    f8 = k.to(torch.float8_e5m2)
+    with pytest.raises(ValueError, match="float8_e5m2"):
         K.decode_attention_cached(q, f8, f8, cur)
+
+
+# ------------------------------------------------ the e4m3 cache instance
+
+# (atol, rtol) of a bf16 output against f32 math on its inputs: one
+# rounding to bf16 is within 2^-9 of the value (chip_smoke.EXACT_BF16)
+EXACT_BF16 = (1e-5, 2.0 ** -8)
+
+
+def _e4m3_case(g, dev, B, T, H, Hkv, dh, C, cur):
+    q, k, v, cur = _cached_case(g, dev, torch.bfloat16, B, T, H, Hkv, dh,
+                                C, cur)
+    return q, k.to(torch.float8_e4m3fn), v.to(torch.float8_e4m3fn), cur
+
+
+def test_decode_attention_e4m3_block_step(cuda):
+    """An e4m3 lane loads 8 bytes, 8 elements: bf16's geometry."""
+    from repro_torch.kernels.decode_attn import E4M3_CODE, block_step
+    assert {dh: block_step(dh, E4M3_CODE) for dh in (64, 128)} == \
+        {64: 64, 128: 32}
+    assert block_step(80, E4M3_CODE) == 0
+
+
+# musicgen-large's heads (32 / 32 of 64) and qwen3-moe-235b's (64 / 4 of
+# 128), a decode step and a verify pass, full cache and rolling window
+@pytest.mark.parametrize("window", [None, 40], ids=["full", "window"])
+@pytest.mark.parametrize("T", [1, 5])
+@pytest.mark.parametrize("H,Hkv,dh", [(32, 32, 64), (64, 4, 128),
+                                      (16, 8, 64)])
+def test_decode_attention_e4m3_cached(cuda, H, Hkv, dh, T, window):
+    """bf16 q over an e4m3 cache: within TOL of the plain version on the
+    same cache (which dequantizes it to bf16) and within EXACT_BF16 of
+    f32 math on the dequantized inputs; the same bits call after call."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(T * 1000 + dh + H)
+    if window is None:
+        C, cur = 96, [0, 37, 96 - T]
+    else:
+        C = window + 8
+        cur = [C - 3, 2 * C + 5, 3 * C - 1]
+    q, k, v, cur = _e4m3_case(g, cuda, 3, T, H, Hkv, dh, C, cur)
+    before = K.decode_attention.launches
+    out = K.decode_attention_cached(q, k, v, cur, window=window)
+    assert K.decode_attention.launches == before + 1
+    assert out.dtype == torch.bfloat16
+    check(out, K.decode_attention_cached_plain(q, k, v, cur, window=window),
+          torch.bfloat16)
+    exact = K.decode_attention_cached_plain(
+        q.float(), k.float(), v.float(), cur, window=window)
+    atol, rtol = EXACT_BF16
+    torch.testing.assert_close(out.float(), exact, atol=atol, rtol=rtol)
+    for _ in range(2):
+        assert torch.equal(out, K.decode_attention_cached(q, k, v, cur,
+                                                          window=window))
+
+
+def test_decode_attention_e4m3_lengths_contract_and_f32_queries(cuda):
+    """The Pallas contract (one query per row, lengths) over an e4m3
+    cache, and f32 queries, which are read as bf16 and come back f32."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(21)
+    q, k, v, cur = _e4m3_case(g, cuda, 4, 1, 16, 8, 128, 300,
+                              [0, 1, 150, 299])
+    lengths = cur + 1
+    check(K.decode_attention(q[:, 0], k, v, lengths),
+          K.decode_attention_plain(q[:, 0], k, v, lengths), torch.bfloat16)
+    out = K.decode_attention_cached(q.float(), k, v, cur)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, K.decode_attention_cached(q, k, v, cur).float())
+
+
+def test_decode_attention_e4m3_refuses_other_head_dims(cuda):
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(22)
+    q, k, v, cur = _e4m3_case(g, cuda, 2, 1, 4, 4, 80, 64, [3, 9])
+    with pytest.raises(ValueError, match=r"\(64, 128\)"):
+        K.decode_attention_cached(q, k, v, cur)
+
+
+def test_f8_cache_model_on_the_card_matches_the_cpu(cuda):
+    """A 2-layer f32 granite-moe with an e4m3 cache: prefill writes the
+    cache, three decode steps update it in place; the greedy
+    tokens equal the CPU's, the logits are within the bf16 TOL, and the
+    cache bytes the card wrote equal the CPU's where both rounded the
+    same f32 values (at most a few elements differ by one code)."""
+    from repro_torch.bridge import init_params
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.models.model import decode_step, params_to, prefill
+    cfg = ARCHS["granite-moe-1b-a400m"].reduced(
+        num_layers=2, max_d_model=128, max_vocab=256)
+    params = init_params(cfg, seed=3, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 12)).astype(np.int32))
+    f8 = torch.float8_e4m3fn
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = params_to(params, dev)
+        logits, cache, _ = prefill(cfg, p, toks.to(dev), cache_len=32,
+                                   cache_dtype=f8)
+        assert cache["kv_k"].dtype == f8
+        out, tok = [logits.float().cpu()], logits.argmax(-1)
+        for _ in range(3):
+            lg, cache, _ = decode_step(cfg, p, tok[:, None].int(), cache)
+            out.append(lg[:, 0].float().cpu())
+            tok = lg[:, 0].argmax(-1)
+        runs[dev.type] = (out, {k: c.cpu() for k, c in cache.items()})
+    (oc, cc), (og, cg) = runs["cpu"], runs["cuda"]
+    for a, b in zip(oc, og):
+        assert torch.equal(a.argmax(-1), b.argmax(-1))
+        torch.testing.assert_close(b, a, atol=2e-2, rtol=2e-2)
+    assert torch.equal(cc["cur_len"], cg["cur_len"])
+    for key in ("kv_k", "kv_v"):
+        diff = (cc[key].view(torch.uint8).int()
+                - cg[key].view(torch.uint8).int()).abs()
+        assert int((diff > 1).sum()) == 0 and \
+            float((diff > 0).float().mean()) < 0.01, key
 
 
 def test_cached_attention_start_pos_raises_on_cuda(cuda):

@@ -40,7 +40,11 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.bridge, repro_torch.checkpoint, repro_torch.data, "
             "repro_torch.optim, repro_torch.launch.train, repro_torch.ep, "
             "repro_torch.launch.serve, repro_torch.launch.inputs, "
-            "repro_torch.launch.roofline, repro_torch.configs.shapes; "
+            "repro_torch.launch.roofline, repro_torch.configs.shapes, "
+            "repro_torch.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.partition, repro_torch.launch.dryrun, "
+            "repro_torch.launch.hillclimb, repro_torch.launch.report, "
+            "repro_torch.launch.gen_experiments; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; "
             "assert not bad, bad")

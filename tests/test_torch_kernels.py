@@ -254,23 +254,28 @@ def test_cached_attention_reads_a_cache_of_another_dtype(cache):
 
 
 def test_one_byte_cache_is_refused_on_the_card():
-    """init_cache and prefill refuse a float8 cache for a CUDA device
-    before allocating anything (so no GPU is needed to see it); the CPU
-    makes one."""
+    """init_cache and prefill refuse a 1-byte cache that decode_attention
+    has no instance for (float8_e5m2) for a CUDA device before
+    allocating anything (so no GPU is needed to see it), and let an
+    e4m3 one through (the e4m3 instance reads it); the CPU makes
+    both."""
     from repro_torch.configs.registry import ARCHS
     cfg = ARCHS["granite-moe-1b-a400m"].reduced(num_layers=1,
                                                 max_d_model=64,
                                                 max_vocab=64)
-    f8 = torch.float8_e4m3fn
-    with pytest.raises(ValueError, match="e4m3"):
-        TMD.init_cache(cfg, 2, 16, f8, device="cuda")
+    e5, e4 = torch.float8_e5m2, torch.float8_e4m3fn
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        TMD.init_cache(cfg, 2, 16, e5, device="cuda")
 
     class CudaTokens:                   # where prefill reads the device
         device = torch.device("cuda")
-    with pytest.raises(ValueError, match="e4m3"):
-        TMD.prefill(cfg, {}, CudaTokens(), cache_len=16, cache_dtype=f8)
-    cache = TMD.init_cache(cfg, 2, 16, f8, device="cpu")
-    assert cache["kv_k"].dtype == f8
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        TMD.prefill(cfg, {}, CudaTokens(), cache_len=16, cache_dtype=e5)
+    TMD.check_cache_dtype(e4, "cuda")
+    for f8 in (e4, e5):
+        cache = TMD.init_cache(cfg, 2, 16, f8, device="cpu")
+        assert cache["kv_k"].dtype == f8
+        assert not cache["kv_k"].view(torch.uint8).any()
 
 
 # ------------------------------------------------------------ wrappers ----
@@ -352,19 +357,54 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
                                  "grouped_ffn_bwd": 0}
 
 
+class ElsewhereTensor:
+    """Stands in for a tensor on a device with neither a kernel nor a
+    plain route (this CPU build can make no such tensor): a wrapper must
+    raise on its device before reading anything else."""
+    device = torch.device("xpu")
+    ndim = 3
+    requires_grad = False
+
+    def __getitem__(self, index):
+        return self
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
-    """Only CPU tensors take the plain version; a tensor on any other
-    device without a kernel raises instead of computing silently."""
+    """CPU and meta tensors take the plain version (on meta it only
+    propagates shapes and dtypes, and counts no launch); a tensor on any
+    other device without a kernel raises instead of computing
+    silently."""
+    before = K.launch_counts()
     q = torch.zeros((1, 2, 32), device="meta")
     kv = torch.zeros((1, 8, 1, 32), device="meta")
-    with pytest.raises(ValueError):
-        K.decode_attention(q, kv, kv, torch.tensor([3]))
+    out = K.decode_attention(q, kv, kv, torch.tensor([3], device="meta"))
+    assert (out.device.type, out.shape) == ("meta", q.shape)
     x = torch.zeros((4, 16), device="meta")
     w = torch.zeros((2, 16, 32), device="meta")
+    y = K.moe_ffn(x, w, w, w.transpose(1, 2),
+                  torch.ones((4, 2), device="meta"),
+                  torch.ones(2, dtype=torch.bool, device="meta"),
+                  max_active=2)
+    assert (y.device.type, y.shape, y.dtype) == ("meta", x.shape, x.dtype)
+    ys = K.grouped_ffn(x, w, w, w.transpose(1, 2),
+                       torch.zeros(1, dtype=torch.int32, device="meta"),
+                       torch.ones(1, dtype=torch.int32, device="meta"),
+                       block_t=4)
+    assert (ys.device.type, ys.shape) == ("meta", x.shape)
+    assert K.launch_counts() == before
+    far = ElsewhereTensor()
     with pytest.raises(ValueError):
-        K.moe_ffn(x, w, w, w.transpose(1, 2), torch.ones((4, 2)),
+        K.decode_attention(far, kv, kv, torch.tensor([3]))
+    with pytest.raises(ValueError):
+        K.decode_attention_cached(far, kv, kv, torch.tensor([3]))
+    with pytest.raises(ValueError):
+        K.moe_ffn(far, w, w, w.transpose(1, 2), torch.ones((4, 2)),
                   torch.ones(2, dtype=torch.bool), max_active=2)
     with pytest.raises(ValueError):
-        K.grouped_ffn(x, w, w, w.transpose(1, 2),
+        K.grouped_ffn(far, w, w, w.transpose(1, 2),
                       torch.zeros(1, dtype=torch.int32),
                       torch.ones(1, dtype=torch.int32), block_t=4)
+    with pytest.raises(ValueError):
+        K.grouped_ffn_bwd(far, w, w, w.transpose(1, 2),
+                          torch.zeros(1, dtype=torch.int32),
+                          torch.ones(1, dtype=torch.int32), far, block_t=4)

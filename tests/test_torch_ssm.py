@@ -156,18 +156,25 @@ def test_ssd_scan_plain_matches_ssd_chunked_small_dt(B, S, nh, hd, g, ds,
 
 
 def test_ssd_scan_wrapper_routes_by_device():
-    """A CPU tensor takes the plain version (no launch counted); a device
-    with no kernel raises."""
+    """A CPU tensor takes the plain version (no launch counted), and so
+    does a meta tensor, whose outputs have the plain version's shapes and
+    dtypes; a device with no kernel raises."""
     x, dt, A, Bm, Cm, st0 = scan_inputs(3, 1, 20, 2, 32, 1, 16, True)
     before = K.ssd_scan.launches
     args = [torch.tensor(a) for a in (x, dt, A, Bm, Cm)]
     y, st = K.ssd_scan(*args, chunk=8, init_state=torch.tensor(st0))
     yp, sp = K.ssd_scan_plain(*args, chunk=8, init_state=torch.tensor(st0))
     assert torch.equal(y, yp) and torch.equal(st, sp)
+    ym, sm = K.ssd_scan(*[a.to("meta") for a in args], chunk=8)
+    assert (ym.device.type, ym.shape, ym.dtype) == ("meta", y.shape, y.dtype)
+    assert (sm.shape, sm.dtype) == (st.shape, st.dtype)
     assert K.ssd_scan.launches == before
     assert "ssd_scan" in K.KERNELS
+
+    class Elsewhere:        # a tensor on a device with no kernel
+        device = torch.device("xpu")
     with pytest.raises(ValueError):
-        K.ssd_scan(*[a.to("meta") for a in args], chunk=8)
+        K.ssd_scan(Elsewhere(), *args[1:], chunk=8)
 
 
 # ---------------------------------------------------------- the block -----
