@@ -48,7 +48,8 @@ each prints its wall time):
                 without rows, invalid tail tiles, block_t 128) in f32
                 and bf16, each gradient within TOL of its largest
                 magnitude, two calls bit-equal, at most 3 CUDA kernels
-                per call, beside the torch._grouped_mm yardstick;
+                per call, each pass's device us and TFLOP/s on the real
+                rows, beside the torch._grouped_mm yardstick;
                 decode_attention also at the families phase's decode
                 shapes, T = 1, cur_len drawn per row over the served
                 lengths in a cache of 512: paligemma-3b (8 rows, 8 query
@@ -223,7 +224,8 @@ each prints its wall time):
                 has nonzero w1 / w3 / w2 gradients and no other one, then
                 10 steps whose loss must fall, with the step time,
                 tokens/s, peak memory and grouped_ffn's forward and
-                backward launches per step (one backward per layer);
+                backward launches per step (one backward per layer),
+                and the backward's share of a step's device time;
                 (c) benchmarks/fig5_table4_spec.py's setting trained on
                 the card (the bench target 150 steps, the dense draft 300
                 and 10 / 20 / 40), served 8 x 16 prompts, 48 new,
@@ -280,12 +282,17 @@ VLM, AUDIO = "paligemma-3b", "musicgen-large"
 FAMILY_PREFIX, FAMILY_PROMPT, FAMILY_NEW = 256, 128, 32
 SSD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")   # the three passes of ssd_scan
+# grouped_ffn_bwd's three passes (tc: bf16 on the tensor cores; f32),
+# and each pass's share of 16 rows d f operations
+BWD_KERNELS = ("bwd_act_tc_kernel", "bwd_act_f32_kernel",
+               "bwd_dx_tc_kernel", "bwd_dx_f32_kernel", "bwd_dw_tc_kernel",
+               "bwd_dw_f32_kernel")
+BWD_PASS_FLOPS = {"bwd_act": 6, "bwd_dx": 4, "bwd_dw": 6}
 # every __global__ function of src/repro_torch/kernels/csrc (name prefixes)
 PORT_KERNELS = SSD_KERNELS + ("grouped_tc_kernel", "grouped_f32_kernel",
                               "moe_up_kernel", "moe_down_kernel",
                               "moe_reduce_kernel", "decode_split_kernel",
-                              "decode_merge_kernel", "bwd_act_kernel",
-                              "bwd_dx_kernel", "bwd_dw_kernel")
+                              "decode_merge_kernel") + BWD_KERNELS
 
 
 def log(*a):
@@ -3549,18 +3556,47 @@ def grouped_bwd_cases(archs):
                 *args, block_t=bt), iters=5),
             bound_ms=bms, bound_by=by, library_ms=None)
         case["tflops"] = flops / case["ms"] / 1e9
+        case["pass_us"], case["pass_tflops"] = bwd_passes(kern_us, n_rows,
+                                                          d, f)
         if dtype == torch.bfloat16:
             case.update(grouped_mm_bwd_yardstick(plan, *args))
+        else:
+            case.update(sgemm_yardstick(n_valid * bt, d, f))
         log(f"grouped_ffn_bwd {dtype}: errors / max |ref| {errs} (limit "
             f"{TOL[dtype]}), bit-equal {bit_equal}, empty experts "
             f"{empty} zero {zeros}; {case['ms']:.4f} ms (bound {bms:.4f} "
             f"by {by}), {case['tflops']:.1f} TFLOP/s on the real rows, "
             f"plain {case['plain_ms']:.3f} ms, {n_kern} CUDA kernels per "
-            f"call: {kern_us}; torch._grouped_mm yardstick: "
-            f"{case.get('grouped_mm_ms')}")
+            f"call; per pass device us {case['pass_us']} and TFLOP/s on "
+            f"the real rows {case['pass_tflops']}; torch._grouped_mm "
+            f"yardstick: {case.get('grouped_mm_ms')}; cuBLAS SGEMM "
+            f"TFLOP/s: {case.get('sgemm_tflops')}")
         out.append(case)
         del w1, w3, w2, xs, dys, ker, again, ref
     return out
+
+
+def bwd_passes(kern_us, rows: int, d: int, f: int):
+    """({pass: device us}, {pass: TFLOP/s on the real rows}) of one
+    grouped_ffn_bwd call from cuda_kernels_of's per-kernel times."""
+    us = {}
+    for name, t in kern_us.items():
+        for p in BWD_PASS_FLOPS:
+            if f"{p}_" in name:
+                us[p] = us.get(p, 0.0) + t
+    return us, {p: BWD_PASS_FLOPS[p] * rows * d * f / (t * 1e6)
+                for p, t in us.items() if t > 0}
+
+
+def sgemm_yardstick(rows: int, d: int, f: int):
+    """The f32 FFMA rate the card reaches in practice: one cuBLAS SGEMM
+    (TF32 off) of the worked rows (rows, d) by (d, 3f), pass 1's three
+    products as one. A yardstick of speed only, used nowhere in the
+    port."""
+    a = torch.randn(rows, d, device=CUDA)
+    b = torch.randn(d, 3 * f, device=CUDA)
+    ms = time_ms(lambda: a @ b, iters=10)
+    return dict(sgemm_ms=ms, sgemm_tflops=6.0 * rows * d * f / ms / 1e9)
 
 
 def grouped_mm_bwd_yardstick(plan, xs, w1, w3, w2, eid, valid, dys):
@@ -3728,6 +3764,9 @@ def train_full_width(cfg, *, steps: int = 10, batch: int = 8,
                routed_experts=int(routed.sum()), profile=prof)
     log(f"train {cfg.name}: {L} layers, f32, remat, {batch} x {seq} "
         f"tokens: {json.dumps(res)}")
+    log(f"train {cfg.name}: grouped_ffn_bwd {prof['bwd_ms']:.3f} of the "
+        f"step's {prof['device_busy_ms']:.3f} device ms "
+        f"({100 * prof['bwd_share']:.1f} %)")
     if not all(np.isfinite(losses + norms)) or losses[-1] >= losses[0]:
         fail(f"train {cfg.name}: the loss did not fall or is not finite")
     if launches["grouped_ffn_bwd"] != L * steps or \
@@ -3753,11 +3792,13 @@ def train_step_profile(step, params, opt, toks, step_s: float):
     kern = cuda_kernels(prof)
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    ours = port_kernels_ms(kern, 1)
+    bwd = sum(ms for k, ms in ours.items() if k.startswith(BWD_KERNELS))
     return dict(device_busy_ms=busy, idle=1 - busy / (step_s * 1e3),
                 kernels=sum(e.count for e in kern),
                 top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
                      for e in top],
-                port_kernels_ms=port_kernels_ms(kern, 1))
+                port_kernels_ms=ours, bwd_ms=bwd, bwd_share=bwd / busy)
 
 
 def train_bench(cfg, steps: int, seed: int, **kw):

@@ -32,7 +32,8 @@ import chip_smoke
 KEYS = ("dtype", "case", "policy", "model", "lengths", "init_state",
         "dt_shift", "rel_err", "bit_equal",
         "active", "max_active", "ms", "library_ms", "ms_over_sdpa",
-        "grouped_mm_ms", "kernels_per_call", "max_abs_err", "ok")
+        "grouped_mm_ms", "sgemm_tflops", "kernels_per_call", "pass_us",
+        "pass_tflops", "max_abs_err", "ok")
 
 
 def main() -> int:

@@ -278,9 +278,12 @@ def grouped_ffn_bwd(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                     block_t: int):
     """grouped_ffn's gradient for the output gradient dys (P, d): returns
     (dxs, dw1, dw3, dw2). On the card three CUDA kernels
-    (csrc/grouped_ffn_bwd.cu) in IEEE f32 on the CUDA cores, with f32
-    scratches of (P, f) for dA, dB and H, and no atomics, so two calls
-    give the same bits; on the CPU the plain version."""
+    (csrc/grouped_ffn_bwd.cu): bf16 on the tensor cores with dA, dB and
+    H rounded to bf16 between them, f32 in IEEE FMAs on the CUDA cores;
+    (P, f) scratches for dA, dB and H in the input dtype, and no atomics,
+    so two calls give the same bits. As for grouped_ffn, d and f must be
+    multiples of 8 and every operand 16-byte aligned. On the CPU the
+    plain version."""
     if xs.device.type in build.PLAIN_DEVICES:
         return grouped_ffn_bwd_plain(xs, w1, w3, w2, tile_eid, tile_valid,
                                      dys, block_t=block_t)
@@ -298,12 +301,17 @@ def grouped_ffn_bwd(xs: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
              "grouped_ffn_bwd: tile vector shapes")
     _require(xs.dtype == dys.dtype == w1.dtype == w3.dtype == w2.dtype,
              "grouped_ffn_bwd: xs, dys and weights must share a dtype")
+    _require(d % 8 == 0 and f % 8 == 0,
+             f"grouped_ffn_bwd: d={d} and f={f} must be multiples of 8")
     eid = tile_eid.to(torch.int32).contiguous()
     valid = tile_valid.to(torch.int32).contiguous()
     _check_cuda("grouped_ffn_bwd", xs.device, xs=xs, w1=w1, w3=w3, w2=w2,
                 dys=dys, tile_eid=eid, tile_valid=valid)
-    f32 = dict(dtype=torch.float32, device=xs.device)
-    da, db, h = (torch.empty((P, f), **f32) for _ in range(3))
+    for k, t in dict(xs=xs, w1=w1, w3=w3, w2=w2, dys=dys).items():
+        _require(t.data_ptr() % 16 == 0,
+                 f"grouped_ffn_bwd: {k} not 16-byte aligned")
+    da, db, h = (torch.empty((P, f), dtype=xs.dtype, device=xs.device)
+                 for _ in range(3))
     dxs = torch.empty_like(xs)
     dw1, dw3, dw2 = (torch.empty_like(w) for w in (w1, w3, w2))
     build.check(build.lib().grouped_ffn_bwd(

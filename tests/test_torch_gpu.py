@@ -992,12 +992,14 @@ def test_graph_capture_of_a_host_sync_raises(cuda):
 # ------------------------------------------------------------ training
 
 def _bwd_case(cuda, dtype, block_t, T=90, d=64, E=5, f=72, k=2, seed=0):
-    """A sorted plan over experts 0..3 of 5 (expert 4 gets no row) whose
-    buffer ends in invalid tiles, f = 72 not a multiple of the kernel's
-    64 columns, and a random output gradient on every row."""
+    """A sorted plan over experts 0..3 of 5 whose buffer ends in invalid
+    tiles: expert 3 takes 3 rows (one partial tile), expert 4 none; d and
+    f need not be multiples of the kernel's tiles (f = 72); a random
+    output gradient on every row."""
     from repro_torch.models.dispatch import dispatch_plan, gather_tokens
     g = torch.Generator().manual_seed(seed)
-    idx = torch.argsort(torch.rand((T, E - 1), generator=g), 1)[:, :k]
+    idx = torch.argsort(torch.rand((T, E - 2), generator=g), 1)[:, :k]
+    idx[:3, 1] = E - 2
     w = torch.full((T, k), 0.5)
     plan = dispatch_plan(idx.to(cuda), w.to(cuda), E, block_t=block_t)
     xs = gather_tokens(rand(g, (T, d), dtype).to(cuda), plan)
@@ -1006,6 +1008,7 @@ def _bwd_case(cuda, dtype, block_t, T=90, d=64, E=5, f=72, k=2, seed=0):
     dys = rand(g, tuple(xs.shape), dtype).to(cuda)
     assert (plan.tile_valid == 0).any()
     assert 4 not in plan.tile_eid[plan.tile_valid > 0].tolist()
+    assert int(plan.counts[3]) == 3
     return (xs, w1, w3, w2, plan.tile_eid, plan.tile_valid, dys), plan
 
 
@@ -1016,13 +1019,16 @@ def _rel_close(out, ref, tol):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block_t", [8, 128])
-def test_grouped_ffn_bwd_kernel(cuda, dtype, block_t):
+@pytest.mark.parametrize("block_t", [8, 64, 128, 256])
+@pytest.mark.parametrize("d,f", [(64, 72), (72, 200)])
+def test_grouped_ffn_bwd_kernel(cuda, dtype, block_t, d, f):
     """The backward kernel against its plain version: every gradient
     within TOL of its largest magnitude, exact zeros for the expert with
-    no rows and for invalid tiles' rows, and two calls bit-equal."""
+    no rows and for invalid tiles' rows, two calls bit-equal, and three
+    CUDA kernels a call. d 72, f 200: multiples of 8, not of the
+    kernel's 64- and 128-wide tiles."""
     from repro_torch import kernels as K
-    args, plan = _bwd_case(cuda, dtype, block_t)
+    args, plan = _bwd_case(cuda, dtype, block_t, d=d, f=f)
     before = K.grouped_ffn_bwd.launches
     out = K.grouped_ffn_bwd(*args, block_t=block_t)
     assert K.grouped_ffn_bwd.launches == before + 1
@@ -1030,6 +1036,7 @@ def test_grouped_ffn_bwd_kernel(cuda, dtype, block_t):
     for o, r in zip(out, ref):
         assert o.dtype == r.dtype and o.shape == r.shape
         _rel_close(o, r, TOL[dtype])
+    assert float(out[1][3].abs().max()) > 0.0   # the one partial tile
     assert float(out[1][4].abs().max()) == 0.0
     assert float(out[2][4].abs().max()) == 0.0
     assert float(out[3][4].abs().max()) == 0.0
@@ -1041,6 +1048,17 @@ def test_grouped_ffn_bwd_kernel(cuda, dtype, block_t):
     n, per_kernel = _chip_smoke().cuda_kernels_of(
         lambda: K.grouped_ffn_bwd(*args, block_t=block_t))
     assert n == 3, per_kernel
+
+
+def test_grouped_ffn_bwd_refuses_widths_off_the_chunks(cuda):
+    """The kernel copies 16-byte chunks: d and f must be multiples of 8,
+    and the wrapper raises before launching otherwise."""
+    from repro_torch import kernels as K
+    args, _ = _bwd_case(cuda, torch.bfloat16, 8, f=60)
+    before = K.grouped_ffn_bwd.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K.grouped_ffn_bwd(*args, block_t=8)
+    assert K.grouped_ffn_bwd.launches == before
 
 
 def test_grouped_ffn_autograd_runs_the_backward_kernel(cuda):

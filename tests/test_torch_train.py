@@ -343,6 +343,81 @@ def test_grouped_ffn_bwd_plain_matches_jax_vjp_and_autograd(block_t):
     assert float(got[0][rows].abs().max()) == 0.0  # invalid tiles
 
 
+BF16_TOL = 2e-2   # tests/test_kernels.py's bf16 tolerance
+
+
+def bf16_kernel_rounding(xs, w1, w3, w2, plan, dys):
+    """grouped_ffn_bwd's bf16 kernel as its rounding goes, in f32 on
+    bf16 values: A, B and G summed in f32 from bf16 operands; dA, dB and
+    H rounded to bf16 between the passes; dxs and the weight gradients
+    summed in f32 from those and rounded to bf16 once. Invalid tiles
+    give zero rows and add nothing to a weight gradient."""
+    P, d = xs.shape
+    E, _, f = w1.shape
+    bt = plan.block_t
+    nt = P // bt
+
+    def bf(t):
+        return t.to(torch.bfloat16).float()
+    live = (plan.tile_valid != 0).float()[:, None, None]
+    eid = plan.tile_eid.long()
+    x = xs.reshape(nt, bt, d)
+    dy = dys.reshape(nt, bt, d) * live
+    w1g, w3g, w2g = w1[eid], w3[eid], w2[eid]
+    a = torch.einsum("tbd,tdf->tbf", x, w1g)
+    b = torch.einsum("tbd,tdf->tbf", x, w3g)
+    g = torch.einsum("tbd,tfd->tbf", dy, w2g)
+    s = torch.sigmoid(a)
+    da = bf(g * b * s * (1 + a * (1 - s)) * live)
+    db = bf(g * a * s * live)
+    h = bf(a * s * b * live)
+    dxs = bf(torch.einsum("tbf,tdf->tbd", da, w1g)
+             + torch.einsum("tbf,tdf->tbd", db, w3g))
+
+    def per_expert(eq, u, v):
+        t = torch.einsum(eq, u, v)
+        return bf(torch.zeros((E,) + t.shape[1:]).index_add_(0, eid, t))
+    return (dxs.reshape(P, d), per_expert("tbd,tbf->tdf", x, da),
+            per_expert("tbd,tbf->tdf", x, db),
+            per_expert("tbf,tbd->tfd", h, dy))
+
+
+def test_bf16_backward_rounding_stays_within_tol_of_jax_vjp():
+    """The bf16 kernel's error budget at granite-moe's expert widths (d
+    1024, f 512, E 32; 24 tokens top-8, block_t 16): rounding dA, dB and
+    H to bf16 between the passes, as the kernel does, keeps every
+    gradient within bf16's TOL of its largest magnitude against jax.vjp
+    of grouped_ffn_jnp on the same bf16-rounded inputs."""
+    rng = np.random.default_rng(23)
+    T, d, E, f, k = 24, 1024, 32, 512, 8
+    logits = rng.standard_normal((T, E))
+    idx = np.argsort(-logits, 1)[:, :k].astype(np.int32)
+    w = np.full((T, k), 1.0 / k, np.float32)
+    plan = TD.dispatch_plan(torch.tensor(idx), torch.tensor(w), E,
+                            block_t=16)
+
+    def bf16_values(*shape, scale=1.0):
+        t = torch.tensor((scale * rng.standard_normal(shape)
+                          ).astype(np.float32))
+        return t.to(torch.bfloat16).float()
+    xs = TD.gather_tokens(bf16_values(T, d), plan)
+    w1, w3 = bf16_values(E, d, f, scale=0.02), bf16_values(E, d, f,
+                                                           scale=0.02)
+    w2 = bf16_values(E, f, d, scale=0.02)
+    dys = bf16_values(*xs.shape, scale=0.01)
+    got = bf16_kernel_rounding(xs, w1, w3, w2, plan, dys)
+    jplan = JD.DispatchPlan(*[jnp.asarray(np.asarray(v))
+                              if isinstance(v, torch.Tensor) else v
+                              for v in plan])
+    _, vjp = jax.vjp(lambda *a: JD.grouped_ffn_jnp(*a, jplan),
+                     *(jnp.asarray(t.numpy()) for t in (xs, w1, w3, w2)))
+    want = vjp(jnp.asarray(dys.numpy()))
+    errs = [leaf_err(g, j) for g, j in zip(got, want)]
+    assert max(errs) <= BF16_TOL, errs
+    assert min(errs) > 0   # the rounding is there, and measured
+    assert (plan.tile_valid == 0).any()
+
+
 def test_grouped_ffn_goes_through_its_gradient_under_autograd():
     """With grad enabled the wrapper is GroupedFFN, whose backward is
     grouped_ffn_bwd (its plain version here); under no_grad nothing is
