@@ -50,6 +50,14 @@ each prints its wall time):
                 magnitude, two calls bit-equal, at most 3 CUDA kernels
                 per call, each pass's device us and TFLOP/s on the real
                 rows, beside the torch._grouped_mm yardstick;
+                ssd_scan_bwd (the scan's gradient) at mamba2-370m's and
+                zamba2-1.2b's widths, dt shift 0 and -5: the train
+                phases' 8 x 512 tokens in f32, then 8 x 500 (a ragged
+                last chunk) in f32 and bf16, init_state and d_final in
+                the -5 cases:
+                each gradient within 1e-4 (f32) / 2e-2 (bf16) of its
+                largest magnitude, two calls bit-equal, at most 5 CUDA
+                kernels a call, each pass's device us;
                 decode_attention also at the families phase's decode
                 shapes, T = 1, cur_len drawn per row over the served
                 lengths in a cache of 512: paligemma-3b (8 rows, 8 query
@@ -234,7 +242,19 @@ each prints its wall time):
                 every draft, a short draft's acceptance strictly in
                 (0, 1), HIER's activated experts per verify pass below
                 NAIVE's; acceptance, accepted per round, activated
-                experts and tokens/s printed.
+                experts and tokens/s printed; (d), run before (c):
+                mamba2-370m and zamba2-1.2b cut to 2 layers, f32,
+                4 x 500 synthetic tokens, on the CPU (plain versions)
+                and on the card (ssd_scan and ssd_scan_bwd): as (a), with
+                ssd_scan_bwd launched once per layer and the leaves
+                that start at zero (conv biases, A_log, dt_bias)
+                printed after the step, not gated; (e) both at all
+                their layers (48, 38), f32, remat, 8 x 512 tokens: every
+                SSM layer's weights get a nonzero gradient, then 10
+                steps whose loss must fall, with exact launches
+                (ssd_scan_bwd once per layer per step, ssd_scan twice),
+                step time, tokens/s, peak memory and the backward
+                kernel's share of a step's device time.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -288,11 +308,20 @@ BWD_KERNELS = ("bwd_act_tc_kernel", "bwd_act_f32_kernel",
                "bwd_dx_tc_kernel", "bwd_dx_f32_kernel", "bwd_dw_tc_kernel",
                "bwd_dw_f32_kernel")
 BWD_PASS_FLOPS = {"bwd_act": 6, "bwd_dx": 4, "bwd_dw": 6}
+# ssd_scan_bwd's five passes (csrc/ssd_scan_bwd.cu)
+SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
+                   "ssd_bwd_chunk_kernel", "ssd_bwd_dcum_kernel",
+                   "ssd_bwd_group_kernel")
+# ssd_scan_bwd against its plain version, of each gradient's largest
+# magnitude: the scan's f32 bar (dcum's row and column sums cancel), and
+# one rounding of dx, dB, dC to bf16 on either side
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # every __global__ function of src/repro_torch/kernels/csrc (name prefixes)
 PORT_KERNELS = SSD_KERNELS + ("grouped_tc_kernel", "grouped_f32_kernel",
                               "moe_up_kernel", "moe_down_kernel",
                               "moe_reduce_kernel", "decode_split_kernel",
-                              "decode_merge_kernel") + BWD_KERNELS
+                              "decode_merge_kernel") + BWD_KERNELS \
+    + SSD_BWD_KERNELS
 
 
 def log(*a):
@@ -388,9 +417,10 @@ def cuda_kernels_of(fn, calls: int = 3, tries: int = 5):
     """(count, {name: device us}) of the CUDA kernels one call of fn
     runs, by torch.profiler over ``calls`` calls after a warm-up call.
     The tracer can lose records (seen on an H100: a session with none of
-    its call's 2 kernels, or 1 of them), never invent one, so the count
-    per call is rounded up, and a session that sees no kernel is
-    repeated, up to ``tries`` sessions."""
+    its call's 2 kernels, or 1 of them; at most 6 of the 9 of three
+    grouped_ffn_bwd calls), never invent one, so the count per call is
+    rounded up and is at least the number of kernel names seen, and a
+    session that sees no kernel is repeated, up to ``tries`` sessions."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     for _ in range(tries):
@@ -408,7 +438,7 @@ def cuda_kernels_of(fn, calls: int = 3, tries: int = 5):
     for e in kern:   # names cut to 72 characters keep template arguments
         us[e.key[:72]] = us.get(e.key[:72], 0.0) + \
             e.self_device_time_total / calls
-    return -(-sum(e.count for e in kern) // calls), us
+    return max(-(-sum(e.count for e in kern) // calls), len(us)), us
 
 
 def ptxas_report(build_log: str):
@@ -1046,9 +1076,10 @@ def grouped_mm_yardstick(plan, xs, w1, w3, w2):
 def check_kernel_counts(cases):
     """decode_attention's and grouped_ffn's design: at most 2 CUDA
     kernels per call (split + merge; up + down); grouped_ffn_bwd's at
-    most 3 (dA / dB / H, dxs, the weight gradients)."""
+    most 3 (dA / dB / H, dxs, the weight gradients); ssd_scan_bwd's at
+    most 5 (chunk states, state pass, chunk tiles, dcum, group sums)."""
     for name, most in (("decode_attention", 2), ("grouped_ffn", 2),
-                       ("grouped_ffn_bwd", 3)):
+                       ("grouped_ffn_bwd", 3), ("ssd_scan_bwd", 5)):
         for c in cases.get(name, ()):
             if not 1 <= c["kernels_per_call"] <= most:
                 fail(f"{name} {c['dtype']} {c.get('model', '')}: one call "
@@ -1148,6 +1179,126 @@ def ssd_cases(archs):
                 bound_ms=bms, bound_by=by, library_ms=None,
                 bytes=nbytes, flops=flops))
             del x, Bm, Cm, y, yr
+    return out
+
+
+def ssd_bwd_work(B, S, nh, hd, g, ds, l, sz, init, d_final):
+    """(bytes, operations) of one SSD scan gradient: each input (x, dt,
+    A, Bm, Cm, dy, the states given) read once and each output (dx, ddt,
+    dA, dBm, dCm, d_init_state) written once; per (row, head) and chunk
+    of n positions, the causal halves of the five l x l products (s =
+    C·Bᵀ, q = dy·xᵀ, v, dC, dB: n(n+1)/2 pairs, 2·(3·ds + 2·hd)
+    operations each) and the hd x ds products this run's data needs: G_c
+    (every chunk: d_init_state is an output), the chunk's own state S_c
+    (each chunk but the last, for the entering states), the entering
+    state's term (where one enters: a chunk after the first, or an
+    init_state), the two D_c terms (where a cotangent leaves the chunk:
+    a chunk before the last, or d_final), 2·n·hd·ds each, and the state
+    recursions (6·hd·ds a chunk)."""
+    st = B * nh * hd * ds * 4
+    nbytes = (3 * B * S * nh * hd * sz + 4 * B * S * g * ds * sz
+              + 2 * B * S * nh * 4 + 2 * nh * 4
+              + st * (1 + int(init) + int(d_final)))
+    flops, starts = 0, list(range(0, S, l))
+    for c, t0 in enumerate(starts):
+        n = min(l, S - t0)
+        last = c == len(starts) - 1
+        prods = 1 + (not last) + (c > 0 or init) + 2 * (not last or d_final)
+        flops += n * (n + 1) // 2 * 2 * (3 * ds + 2 * hd) \
+            + prods * 2 * n * hd * ds + 6 * hd * ds
+    return nbytes, float(flops * B * nh)
+
+
+def ssd_bwd_cases(archs):
+    """ssd_scan_bwd against ssd_scan_bwd_plain at the SSM training
+    shapes' widths, one group, dt = softplus(randn + shift) with shift 0
+    and -5 as ssd_cases draws: first the train phases' own shape (8 x
+    512 tokens: full chunks, f32, no states, dy zero at the last
+    position as the loss leaves it; the kernels line reads mamba2's
+    shift 0 case), then 8 x 500 (a ragged last chunk) in f32 (the
+    training path's dtype) and bf16, init_state and d_final nonzero in
+    the shift -5 case of each dtype. Each gradient
+    within SCAN_BWD_TOL of its largest magnitude, every output finite,
+    two calls bit-equal; timed beside ssd_bwd_work's bound, with its CUDA
+    kernels per call and their device us. No PyTorch call computes this
+    function (library_ms None). Own generator."""
+    from repro_torch.kernels import ssd_scan_bwd, ssd_scan_bwd_plain
+    from repro_torch.models.ssm import dims
+
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(2468)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=CUDA)
+                ).to(dtype)
+
+    names = ("dx", "ddt", "dA", "dBm", "dCm", "d_init_state")
+    out = []
+    for name in SSM_ARCHS:
+        s = archs[name].ssm
+        _, nh, _ = dims(s, archs[name].d_model)
+        B, hd, grp, ds = 8, s.head_dim, s.n_groups, s.d_state
+        for S, dtype, shift, states in (
+                (512, torch.float32, 0.0, False),
+                (512, torch.float32, -5.0, False),
+                (500, torch.float32, 0.0, False),
+                (500, torch.bfloat16, 0.0, False),
+                (500, torch.float32, -5.0, True),
+                (500, torch.bfloat16, -5.0, True)):
+            l = min(s.chunk_size, S)
+            sz = torch.finfo(dtype).bits // 8
+            x = randn(B, S, nh, hd, scale=0.5, dtype=dtype)
+            dt = torch.nn.functional.softplus(randn(B, S, nh) + shift)
+            A = -torch.exp(randn(nh, scale=0.3))
+            Bm = randn(B, S, grp, ds, scale=0.3, dtype=dtype)
+            Cm = randn(B, S, grp, ds, scale=0.3, dtype=dtype)
+            dy = randn(B, S, nh, hd, dtype=dtype)
+            if S % l == 0:   # the train phases' shape: no loss at S - 1
+                dy[:, -1] = 0
+            st0 = randn(B, nh, hd, ds, scale=0.2) if states else None
+            df = randn(B, nh, hd, ds) if states else None
+            args = (x, dt, A, Bm, Cm, dy)
+            kw = dict(chunk=s.chunk_size, init_state=st0, d_final=df)
+
+            def kernel():
+                return ssd_scan_bwd(*args, **kw)
+            ker, again = kernel(), kernel()
+            ref = ssd_scan_bwd_plain(*args, **kw)
+            errs = {n: max_err(a, r) / max(float(r.float().abs().max()),
+                                           1e-30)
+                    for n, a, r in zip(names, ker, ref)}
+            bit_equal = all(torch.equal(a, b) for a, b in zip(ker, again))
+            finite = all(bool(torch.isfinite(a.float()).all()) for a in ker)
+            nbytes, flops = ssd_bwd_work(B, S, nh, hd, grp, ds, l, sz,
+                                         states, states)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            ms = time_ms(kernel, iters=10)
+            n_kern, kern_us = cuda_kernels_of(kernel)
+            case = dict(
+                dtype=str(dtype).replace("torch.", ""), model=name,
+                init_state=states, d_final=states, dt_shift=shift,
+                shape=f"B={B} S={S} nh={nh} hd={hd} g={grp} ds={ds} "
+                      f"chunk={l}",
+                max_abs_err=max(max_err(a, r) for a, r in zip(ker, ref)),
+                rel_err=errs, tol=SCAN_BWD_TOL[dtype],
+                ok=max(errs.values()) <= SCAN_BWD_TOL[dtype] and bit_equal
+                and finite, bit_equal=bit_equal, finite=finite,
+                ms=ms, tflops=flops / ms / 1e9, kernels_per_call=n_kern,
+                kernel_device_us=kern_us,
+                pass_us={k: sum(t for kn, t in kern_us.items() if k in kn)
+                         for k in SSD_BWD_KERNELS},
+                plain_ms=time_ms(lambda: ssd_scan_bwd_plain(*args, **kw),
+                                 iters=5),
+                bound_ms=bms, bound_by=by, library_ms=None, bytes=nbytes,
+                flops=flops)
+            log(f"ssd_scan_bwd {name} S={S} {dtype} dt_shift={shift} "
+                f"states={states}: errors / max |ref| {errs} (limit "
+                f"{SCAN_BWD_TOL[dtype]}), bit-equal {bit_equal}; {ms:.4f} "
+                f"ms (bound {bms:.4f} by {by}), {case['tflops']:.2f} "
+                f"TFLOP/s, plain {case['plain_ms']:.3f} ms, {n_kern} CUDA "
+                f"kernels per call, device us by pass {case['pass_us']}")
+            out.append(case)
+            del x, Bm, Cm, dy, ker, again, ref
     return out
 
 
@@ -1361,7 +1512,7 @@ def spec_expect(cfg, dcfg, rounds: int, spec_len: int):
             "moe_ffn": rounds * ((spec_len + 1) * Ld
                                  + (0 if sorted_verify else L)),
             "decode_attention": rounds * ((spec_len + 1) * Ld + L),
-            "ssd_scan": 0, "grouped_ffn_bwd": 0}
+            "ssd_scan": 0, "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def spec_served(cfg, params, prompts, plain_tokens, *, new=32,
@@ -2574,7 +2725,7 @@ def ep_serve_phase(cfg, params, prompts, *, new=32, cache_len=512):
         steps = -(-(new - 1) // eng.decode_chunk) * eng.decode_chunk
         return {"grouped_ffn": L * (1 + steps), "moe_ffn": 0,
                 "decode_attention": L * steps, "ssd_scan": 0,
-                "grouped_ffn_bwd": 0}
+                "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
 
     out = {}
     for name, (pol, ex) in settings.items():
@@ -3316,7 +3467,7 @@ def cli_expect(cfg, run: str, stats, decode_chunk: int):
     L = cfg.num_layers
     return {"grouped_ffn": L, "moe_ffn": L * steps,
             "decode_attention": L * steps, "ssd_scan": 0,
-            "grouped_ffn_bwd": 0}
+            "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
 
 
 def serve_cli_phase(cfg, prof):
@@ -3643,55 +3794,83 @@ def tree_errs(got, want):
             / max(float(w[k].float().abs().max()), 1e-30) for k in w}
 
 
-def train_parity(cfg):
-    """granite-moe cut to 2 layers, f32, the same seeded params and 4 x
-    64 synthetic tokens on the CPU (plain versions) and on the card
-    (grouped_ffn and its backward kernel): loss_and_grads, every gradient
-    leaf within TRAIN_LEAF_TOL of its largest magnitude; then one
-    make_train_step (remat, clip, AdamW at its default schedule): the
-    loss within TRAIN_LOSS_TOL, every updated leaf within
-    TRAIN_LEAF_TOL."""
+def train_parity(cfg, *, seq: int = 64, bwd: str = "grouped_ffn_bwd"):
+    """``cfg`` cut to 2 layers, f32, the same seeded params and 4 x
+    ``seq`` synthetic tokens on the CPU (plain versions) and on the card
+    (the kernels: granite-moe's grouped_ffn and its backward, an SSM
+    layer's ssd_scan and ssd_scan_bwd): loss_and_grads, every gradient
+    leaf within TRAIN_LEAF_TOL of its largest magnitude, and ``bwd``
+    launched once per layer; then one make_train_step (remat, clip,
+    AdamW at its default schedule): its loss within TRAIN_LOSS_TOL, its
+    grad_norm within TRAIN_LEAF_TOL, the loss of the updated params on
+    the same tokens within TRAIN_LOSS_TOL, and every updated leaf that
+    was not all zero at init within TRAIN_LEAF_TOL of its largest
+    magnitude. A leaf that starts at zero (the SSM family's conv biases,
+    A_log and dt_bias) is printed with its worst element's clipped
+    gradient in units of eps, not gated: AdamW's first step moves each
+    element by lr g / (|g| + eps) (eps 1e-8), so such a leaf's largest
+    magnitude is lr, and an element whose clipped gradient is within
+    ~100 eps turns an f32 difference of 1e-7 of the gradient's largest
+    magnitude into ~1e-3 of the step."""
     from repro_torch import kernels as K
-    from repro_torch.bridge import init_params
+    from repro_torch.bridge import flatten, init_params
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.train import loss_and_grads, make_train_step
-    from repro_torch.models.model import params_to
+    from repro_torch.models.model import loss_fn, params_to
     from repro_torch.optim import adamw_init
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
     params = init_params(cfg2, seed=0, dtype=torch.float32, device="cpu")
     toks = SyntheticLM(cfg.vocab_size, name=cfg.name).sample(
-        np.random.default_rng(0), 4, 64)
+        np.random.default_rng(0), 4, seq)
     step = make_train_step(cfg2)
     runs = []
     for dev in ("cpu", CUDA):
         p = params_to(params, dev)
+        t = torch.as_tensor(toks, device=dev)
         K.reset_launch_counts()
-        loss, grads = loss_and_grads(cfg2, p, torch.as_tensor(toks,
-                                                              device=dev))
-        bwd = K.grouped_ffn_bwd.launches
+        loss, grads = loss_and_grads(cfg2, p, t)
+        launched = K.KERNELS[bwd].launches
         new, _, m = step(p, adamw_init(p), toks)
+        with torch.no_grad():
+            after = float(loss_fn(cfg2, new, t)[0])
         runs.append((float(loss), grads, new, float(m["loss"]),
-                     float(m["grad_norm"]), bwd))
+                     float(m["grad_norm"]), after, launched))
         del p
-    (lc, gc, pc, mc, nc, _), (lg, gg, pg, mg, ng, bwd) = runs
+    (lc, gc, pc, mc, nc, ac, _), (lg, gg, pg, mg, ng, ag, launched) = runs
     gerr, perr = tree_errs(gg, gc), tree_errs(pg, pc)
-    gworst, pworst = max(gerr, key=gerr.get), max(perr, key=perr.get)
+    zero = {k for k, v in flatten(params).items() if not bool(v.any())}
+    gated = {k: e for k, e in perr.items() if k not in zero}
+    gworst, pworst = max(gerr, key=gerr.get), max(gated, key=gated.get)
+
+    def clipped_over_eps(k):
+        # the worst updated element's clipped CPU gradient in units of
+        # eps: how well AdamW's first step is conditioned there
+        at = (flatten(pg)[k].cpu() - flatten(pc)[k]).abs().argmax()
+        return abs(float(flatten(gc)[k].flatten()[at])) / max(nc, 1.0) \
+            / 1e-8
     res = dict(loss_cpu=lc, loss_gpu=lg, step_loss_cpu=mc,
                step_loss_gpu=mg, grad_norm_cpu=nc, grad_norm_gpu=ng,
+               loss_after_step_cpu=ac, loss_after_step_gpu=ag,
                worst_grad_leaf=gworst, worst_grad_err=gerr[gworst],
                worst_param_leaf=pworst, worst_param_err=perr[pworst],
-               bwd_launches=bwd)
-    log(f"train parity {cfg.name}: 2 layers f32, 4 x 64 tokens, CPU vs "
+               worst_param_clipped_grad_over_eps=clipped_over_eps(pworst),
+               zero_init_leaves={k: dict(err=perr[k],
+                                         clipped_grad_over_eps=(
+                                             clipped_over_eps(k)))
+                                 for k in sorted(zero)},
+               bwd=bwd, bwd_launches=launched)
+    log(f"train parity {cfg.name}: 2 layers f32, 4 x {seq} tokens, CPU vs "
         f"GPU: {json.dumps(res)} (limits: loss {TRAIN_LOSS_TOL}, leaves "
         f"{TRAIN_LEAF_TOL} of their largest magnitude)")
     if abs(lc - lg) > TRAIN_LOSS_TOL or abs(mc - mg) > TRAIN_LOSS_TOL or \
-            gerr[gworst] > TRAIN_LEAF_TOL or perr[pworst] > TRAIN_LEAF_TOL \
+            abs(ac - ag) > TRAIN_LOSS_TOL or gerr[gworst] > TRAIN_LEAF_TOL \
+            or perr[pworst] > TRAIN_LEAF_TOL \
             or abs(nc - ng) > TRAIN_LEAF_TOL * nc:
         fail(f"train parity {cfg.name}: CPU and GPU disagree")
-    if bwd != cfg2.num_layers:
-        fail(f"train parity {cfg.name}: {bwd} grouped_ffn_bwd launches, "
-             f"want one per layer ({cfg2.num_layers})")
+    if launched != cfg2.num_layers:
+        fail(f"train parity {cfg.name}: {launched} {bwd} launches, want "
+             f"one per layer ({cfg2.num_layers})")
     return res
 
 
@@ -3705,12 +3884,10 @@ def train_full_width(cfg, *, steps: int = 10, batch: int = 8,
     on SyntheticLM(vocab, name=arch) batches. The loss must be finite and
     fall, grad_norm finite. Launch counters set to 0 just before the
     steps and read just after."""
-    from repro_torch import kernels as K
-    from repro_torch.bridge import init_params, param_count
+    from repro_torch.bridge import init_params
     from repro_torch.data import SyntheticLM, batches
-    from repro_torch.launch.train import loss_and_grads, make_train_step
+    from repro_torch.launch.train import loss_and_grads
     from repro_torch.models import dispatch
-    from repro_torch.optim import adamw_init, cosine_schedule
 
     params = init_params(cfg, seed=0, dtype=torch.float32, device=CUDA)
     stream = batches(SyntheticLM(cfg.vocab_size, name=cfg.name),
@@ -3737,6 +3914,39 @@ def train_full_width(cfg, *, steps: int = 10, batch: int = 8,
         fail(f"train {cfg.name}: expert weight gradients nonzero exactly "
              f"where the experts received rows? no")
     del grads
+    res = dict(layers=L, batch=batch, seq=seq, steps=steps,
+               routed_experts=int(routed.sum()))
+    res.update(train_steps(cfg, params, data, BWD_KERNELS))
+    launches, prof = res["launches"], res["profile"]
+    res.update(fwd_per_step=launches["grouped_ffn"] / steps,
+               bwd_per_step=launches["grouped_ffn_bwd"] / steps)
+    log(f"train {cfg.name}: {L} layers, f32, remat, {batch} x {seq} "
+        f"tokens: {json.dumps(res)}")
+    log(f"train {cfg.name}: grouped_ffn_bwd {prof['bwd_ms']:.3f} of the "
+        f"step's {prof['device_busy_ms']:.3f} device ms "
+        f"({100 * prof['bwd_share']:.1f} %)")
+    check_train_losses(cfg, res)
+    if launches["grouped_ffn_bwd"] != L * steps or \
+            launches["grouped_ffn"] < L * steps:
+        fail(f"train {cfg.name}: launches {launches}, want one backward "
+             f"per layer per step")
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_steps(cfg, params, data, bwd_kernels):
+    """make_train_step (remat) at cosine_schedule(3e-4, 2, steps) over
+    the batches of ``data``, from ``params`` (consumed): losses,
+    grad_norms, the median step after the first, tokens/s, peak memory
+    and the launch counts of the steps (counters set to 0 just before
+    the steps, read just after), then train_step_profile over one more
+    step with ``bwd_kernels``' share."""
+    from repro_torch import kernels as K
+    from repro_torch.bridge import param_count
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    steps = len(data)
     opt = adamw_init(params)
     step = make_train_step(cfg, lr=cosine_schedule(3e-4, 2, steps))
     torch.cuda.synchronize()
@@ -3752,38 +3962,76 @@ def train_full_width(cfg, *, steps: int = 10, batch: int = 8,
         norms.append(float(m["grad_norm"]))
     launches = K.launch_counts()
     step_s = float(np.median(times[1:]))
-    prof = train_step_profile(step, params, opt, data[0], step_s)
-    res = dict(layers=L, params_b=param_count(params) / 1e9,
-               batch=batch, seq=seq, steps=steps, losses=losses,
-               grad_norms=norms, step_s=step_s, first_step_s=times[0],
-               tokens_per_s=batch * seq / step_s,
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               launches=launches,
-               fwd_per_step=launches["grouped_ffn"] / steps,
-               bwd_per_step=launches["grouped_ffn_bwd"] / steps,
-               routed_experts=int(routed.sum()), profile=prof)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    prof = train_step_profile(step, params, opt, data[0], step_s,
+                              bwd_kernels)
+    toks = data[0].shape[0] * data[0].shape[1]
+    return dict(params_b=param_count(params) / 1e9, losses=losses,
+                grad_norms=norms, step_s=step_s, first_step_s=times[0],
+                tokens_per_s=toks / step_s, peak_memory_gb=peak,
+                launches=launches, profile=prof)
+
+
+def check_train_losses(cfg, res):
+    """The loss finite and falling, grad_norm finite."""
+    if not all(np.isfinite(res["losses"] + res["grad_norms"])) or \
+            res["losses"][-1] >= res["losses"][0]:
+        fail(f"train {cfg.name}: the loss did not fall or is not finite")
+
+
+def train_ssm_full_width(cfg, *, steps: int = 10, batch: int = 8,
+                         seq: int = 512):
+    """mamba2-370m or zamba2-1.2b at all its layers, f32 params, remat:
+    loss_and_grads on step 1's batch, where every SSM layer's in_x,
+    in_B, in_C, in_dt, A_log, D and out_proj gradient must be nonzero;
+    then ``steps`` train steps (train_steps) on SyntheticLM(vocab,
+    name=arch) batches: the loss finite and falling, grad_norm finite,
+    ssd_scan_bwd launched exactly once per SSM layer per step and
+    ssd_scan twice (the forward, and its recomputation under remat), and
+    ssd_scan_bwd's share of a step's device time."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data import SyntheticLM, batches
+    from repro_torch.launch.train import loss_and_grads
+
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=CUDA)
+    stream = batches(SyntheticLM(cfg.vocab_size, name=cfg.name),
+                     batch=batch, seq_len=seq, seed=0)
+    data = [next(stream) for _ in range(steps)]
+    _, grads = loss_and_grads(cfg, params,
+                              torch.as_tensor(data[0], device=CUDA))
+    L = cfg.num_layers
+    keys = ("in_x", "in_B", "in_C", "in_dt", "A_log", "D", "out_proj")
+    zero = [(k, i) for k in keys for i in range(L)
+            if not bool((grads["layers"]["ssm"][k][i] != 0).any())]
+    del grads
+    if zero:
+        fail(f"train {cfg.name}: zero SSM weight gradients {zero}")
+    res = dict(layers=L, batch=batch, seq=seq, steps=steps,
+               ssm_grads_nonzero=True)
+    res.update(train_steps(cfg, params, data, SSD_BWD_KERNELS))
+    launches, prof = res["launches"], res["profile"]
     log(f"train {cfg.name}: {L} layers, f32, remat, {batch} x {seq} "
         f"tokens: {json.dumps(res)}")
-    log(f"train {cfg.name}: grouped_ffn_bwd {prof['bwd_ms']:.3f} of the "
+    log(f"train {cfg.name}: ssd_scan_bwd {prof['bwd_ms']:.3f} of the "
         f"step's {prof['device_busy_ms']:.3f} device ms "
-        f"({100 * prof['bwd_share']:.1f} %)")
-    if not all(np.isfinite(losses + norms)) or losses[-1] >= losses[0]:
-        fail(f"train {cfg.name}: the loss did not fall or is not finite")
-    if launches["grouped_ffn_bwd"] != L * steps or \
-            launches["grouped_ffn"] < L * steps:
-        fail(f"train {cfg.name}: launches {launches}, want one backward "
-             f"per layer per step")
-    del params, opt
+        f"({100 * prof['bwd_share']:.1f} %); step {res['step_s']:.4f} s, "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak "
+        f"{res['peak_memory_gb']:.2f} GB")
+    check_train_losses(cfg, res)
+    want = {"ssd_scan_bwd": L * steps, "ssd_scan": 2 * L * steps}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"train {cfg.name}: launches {launches}, want {want}")
     torch.cuda.empty_cache()
     return res
 
 
-def train_step_profile(step, params, opt, toks, step_s: float):
+def train_step_profile(step, params, opt, toks, step_s: float,
+                       bwd_kernels=BWD_KERNELS):
     """torch.profiler (CUDA activity only) over one more train step:
     device busy ms (the kernels' durations summed), the idle share
     against the unprofiled median step, the kernel count, the eight
-    kernels that take the most device time and the port's kernels' ms
-    in the step."""
+    kernels that take the most device time, the port's kernels' ms in
+    the step and ``bwd_kernels``' ms and share of it."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3793,7 +4041,7 @@ def train_step_profile(step, params, opt, toks, step_s: float):
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     ours = port_kernels_ms(kern, 1)
-    bwd = sum(ms for k, ms in ours.items() if k.startswith(BWD_KERNELS))
+    bwd = sum(ms for k, ms in ours.items() if k.startswith(bwd_kernels))
     return dict(device_busy_ms=busy, idle=1 - busy / (step_s * 1e3),
                 kernels=sum(e.count for e in kern),
                 top=[(e.key[:60], e.self_device_time_total / 1e3, e.count)
@@ -3956,6 +4204,7 @@ def main() -> int:
         cases = kernel_cases(ARCHS)
         cases["ssd_scan"] = ssd_cases(ARCHS)
         cases["grouped_ffn_bwd"] = grouped_bwd_cases(ARCHS)
+        cases["ssd_scan_bwd"] = ssd_bwd_cases(ARCHS)
     bad = [(n, c["dtype"], c.get("policy"), c.get("model"),
             c.get("init_state"), c.get("dt_shift"))
            for n, cs in cases.items() for c in cs if not c["ok"]]
@@ -4082,6 +4331,15 @@ def main() -> int:
         train = {"parity": train_parity(cfg),
                  "full_width": train_full_width(cfg)}
         torch.cuda.empty_cache()
+    # the SSM and hybrid families: ssd_scan forward, ssd_scan_bwd backward
+    for name in SSM_ARCHS:
+        with Phase(f"train parity {name}"):
+            train[f"{name} parity"] = train_parity(
+                ARCHS[name], seq=500, bwd="ssd_scan_bwd")
+            torch.cuda.empty_cache()
+    for name in SSM_ARCHS:
+        with Phase(f"train {name}"):
+            train[name] = train_ssm_full_width(ARCHS[name])
     with Phase("trained spec"):
         train["trained_spec"] = trained_spec()
         torch.cuda.empty_cache()
@@ -4099,18 +4357,26 @@ def main() -> int:
                    "src/repro_torch/kernels/csrc/decode_attn.cuh",
                    "src/repro/kernels/decode_attn.py:67"),
                "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
-                            "src/repro/kernels/ssd_scan.py:66")}
+                            "src/repro/kernels/ssd_scan.py:66"),
+               # its gradient (the JAX package differentiates
+               # src/repro/models/ssm.py:87 ssd_chunked)
+               "ssd_scan_bwd": (
+                   "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                   "src/repro/kernels/ssd_scan.py:66")}
     line = []
+    bwd_runs = {"grouped_ffn_bwd": [train["full_width"]],
+                "ssd_scan_bwd": [train[n] for n in SSM_ARCHS]}
     for name, cs in cases.items():
-        # serving's main path runs bf16; training (the backward) f32
-        main_dtype = "float32" if name == "grouped_ffn_bwd" else "bfloat16"
+        # serving's main path runs bf16; training (the backwards) f32
+        main_dtype = "float32" if name in bwd_runs else "bfloat16"
         main_case = next(c for c in cs if c["dtype"] == main_dtype)
         f32 = next(c for c in cs if c["dtype"] == "float32")
-        tol = SCAN_TOL if name == "ssd_scan" else TOL
-        # summed over every main path's continuous runs; the backward's
+        tol = {"ssd_scan": SCAN_TOL,
+               "ssd_scan_bwd": SCAN_BWD_TOL}.get(name, TOL)
+        # summed over every main path's continuous runs; a backward's
         # over the full-width train steps
-        launches = train["full_width"]["launches"][name] \
-            if name == "grouped_ffn_bwd" else \
+        launches = sum(r["launches"][name] for r in bwd_runs[name]) \
+            if name in bwd_runs else \
             sum(r["launches"][name] for runs in results.values()
                 for r in runs.values())
         line.append(dict(

@@ -13,7 +13,8 @@ host's enqueueing outside the timed window). It holds each kernel to its
 plain version as those functions do, and checks no design goal of this
 checkout's kernels. Cases a tree's kernel has no instance for (head dim
 80, h2o-danube's, and 16, the trained speculation's, before they were
-built; grouped_ffn_bwd before it existed) are left out for that tree;
+built; grouped_ffn_bwd and ssd_scan_bwd before they existed) are left
+out for that tree;
 a tree without ``repro_torch/launch/roofline.py`` takes this checkout's
 peaks for the bounds. Prints one JSON line per case (source, kernel,
 dtype, case, ms, the library call's or yardstick's ms, CUDA kernels per
@@ -30,7 +31,7 @@ from pathlib import Path
 import chip_smoke
 
 KEYS = ("dtype", "case", "policy", "model", "lengths", "init_state",
-        "dt_shift", "rel_err", "bit_equal",
+        "d_final", "dt_shift", "rel_err", "bit_equal",
         "active", "max_active", "ms", "library_ms", "ms_over_sdpa",
         "grouped_mm_ms", "sgemm_tflops", "kernels_per_call", "pass_us",
         "pass_tflops", "max_abs_err", "ok")
@@ -68,6 +69,8 @@ def main() -> int:
         cases["ssd_scan"] = chip_smoke.ssd_cases(ARCHS)
         if hasattr(K, "grouped_ffn_bwd"):
             cases["grouped_ffn_bwd"] = chip_smoke.grouped_bwd_cases(ARCHS)
+        if hasattr(K, "ssd_scan_bwd"):
+            cases["ssd_scan_bwd"] = chip_smoke.ssd_bwd_cases(ARCHS)
     card = chip_smoke.gpu_name_power()
     for name, cs in cases.items():
         for c in cs:

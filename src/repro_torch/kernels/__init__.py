@@ -6,6 +6,7 @@ beside its plain PyTorch version.
   moe_ffn           a decode step's masked FFN      (csrc/moe_ffn.cu)
   decode_attention  flash-decode GQA over the cache (csrc/decode_attn.cuh)
   ssd_scan          Mamba2's chunked SSD scan       (csrc/ssd_scan.cu)
+  ssd_scan_bwd      its gradient, for training      (csrc/ssd_scan_bwd.cu)
 
 ``kernels/ops.py`` holds the JAX package's public wrappers over these
 (``xshare_moe_ffn``, ``xshare_grouped_ffn``, ``flash_decode``,
@@ -22,7 +23,7 @@ from repro_torch.kernels.moe_ffn import (  # noqa: F401
     grouped_ffn_plain, moe_ffn, moe_ffn_plain,
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: F401
-    ssd_scan, ssd_scan_plain,
+    SsdScan, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain,
 )
 from repro_torch.kernels.ops import (  # noqa: F401
     dispatch_einsum_bytes, dispatch_sorted_bytes, flash_decode,
@@ -31,7 +32,8 @@ from repro_torch.kernels.ops import (  # noqa: F401
 
 KERNELS = {"grouped_ffn": grouped_ffn, "moe_ffn": moe_ffn,
            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
-           "grouped_ffn_bwd": grouped_ffn_bwd}
+           "grouped_ffn_bwd": grouped_ffn_bwd,
+           "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def reset_launch_counts() -> None:

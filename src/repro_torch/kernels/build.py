@@ -40,6 +40,7 @@ SIGNATURES = {
     "decode_attention": [_P] * 6 + [_I] * 12 + [ctypes.c_float, _I, _P],
     "decode_attention_step": [_I, _I],
     "ssd_scan": [_P] * 10 + [_I] * 8 + [_P],
+    "ssd_scan_bwd": [_P] * 24 + [_I] * 8 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

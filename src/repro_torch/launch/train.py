@@ -4,9 +4,10 @@
 metrics) step: forward and backward of ``models.model.loss_fn`` through
 ``torch.autograd.grad``, global-norm clipping and AdamW. On the card the
 sorted expert FFN runs the ``grouped_ffn`` kernel forward and its
-hand-written gradient backward; a kernel without a backward (moe_ffn at
-T <= 32, decode_attention, ssd_scan) refuses to run under autograd. No
-``torch.compile``.
+hand-written gradient backward, and an SSM layer (mamba2, zamba2) the
+``ssd_scan`` kernel forward and ``ssd_scan_bwd`` backward; a kernel
+without a backward (moe_ffn at T <= 32, decode_attention) refuses to run
+under autograd. No ``torch.compile``.
 
 The CLI trains on the synthetic Markov data (``repro_torch.data``):
 

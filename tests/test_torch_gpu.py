@@ -765,6 +765,166 @@ def test_ssd_scan_refuses_misaligned_tensors(cuda, dtype, name):
                    init_state=t["init_state"])
 
 
+# ssd_scan's gradient against its plain version, relative to each
+# gradient's largest magnitude: 1e-4 in f32 (the scan's bar; dcum's row
+# and column sums cancel), 2e-2 with bf16 inputs (one rounding of dx, dB,
+# dC on either side)
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _scan_bwd_case(dev, dtype, B, S, nh, hd, g, ds, init, d_final,
+                   dt_shift, seed):
+    """The forward's inputs and both cotangents, drawn on the CPU."""
+    gen = torch.Generator().manual_seed(seed)
+    x = rand(gen, (B, S, nh, hd), dtype, 0.5).to(dev)
+    dt = torch.nn.functional.softplus(
+        rand(gen, (B, S, nh), torch.float32) + dt_shift).to(dev)
+    A = (-torch.exp(rand(gen, (nh,), torch.float32, 0.3))).to(dev)
+    Bm = rand(gen, (B, S, g, ds), dtype, 0.3).to(dev)
+    Cm = rand(gen, (B, S, g, ds), dtype, 0.3).to(dev)
+    st0 = rand(gen, (B, nh, hd, ds), torch.float32, 0.2).to(dev) \
+        if init else None
+    dy = rand(gen, (B, S, nh, hd), dtype).to(dev)
+    df = rand(gen, (B, nh, hd, ds), torch.float32).to(dev) \
+        if d_final else None
+    return (x, dt, A, Bm, Cm, dy), dict(init_state=st0, d_final=df)
+
+
+@pytest.mark.parametrize("dt_shift", [0.0, -5.0], ids=["dt0.8", "dt0.007"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,nh,hd,g,ds,chunk,init,d_final", [
+    (2, 64, 4, 32, 4, 16, 16, False, False),    # g = nh
+    (1, 100, 8, 64, 1, 64, 32, True, True),     # ragged tail, both states
+    (2, 300, 4, 64, 1, 128, 256, False, True),  # mamba2's chunk and width
+    (2, 250, 8, 64, 2, 64, 128, True, False),   # zamba2's, two groups
+    (1, 37, 2, 32, 2, 16, 256, True, True),     # one chunk, shorter
+    (8, 500, 32, 64, 1, 128, 256, False, False),  # mamba2-370m's train
+    (8, 500, 64, 64, 1, 64, 128, True, True),     # zamba2-1.2b's
+    (1, 129, 4, 64, 1, 64, 128, True, True),    # a last chunk of 1
+])
+def test_ssd_scan_bwd_kernel(cuda, dtype, dt_shift, B, S, nh, hd, g, ds,
+                             chunk, init, d_final):
+    """The gradient kernel against ssd_scan_bwd_plain: every gradient
+    within SCAN_BWD_TOL of its largest magnitude and finite, the input
+    dtypes kept, one launch counted, two calls bit-equal."""
+    from repro_torch import kernels as K
+    args, kw = _scan_bwd_case(cuda, dtype, B, S, nh, hd, g, ds, init,
+                              d_final, dt_shift, seed=S + nh + ds)
+    before = K.ssd_scan_bwd.launches
+    out = K.ssd_scan_bwd(*args, chunk=chunk, **kw)
+    assert K.ssd_scan_bwd.launches == before + 1
+    ref = K.ssd_scan_bwd_plain(*args, chunk=chunk, **kw)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        assert bool(torch.isfinite(o.float()).all())
+        _rel_close(o, r, SCAN_BWD_TOL[dtype])
+    again = K.ssd_scan_bwd(*args, chunk=chunk, **kw)
+    for o, a in zip(out, again):
+        assert torch.equal(o, a), "ssd_scan_bwd must be deterministic"
+
+
+def test_ssd_scan_bwd_one_call_is_five_kernels(cuda):
+    from repro_torch import kernels as K
+    args, kw = _scan_bwd_case(cuda, torch.float32, 2, 100, 4, 64, 1, 64,
+                              True, True, -5.0, seed=5)
+    n, per_kernel = _chip_smoke().cuda_kernels_of(
+        lambda: K.ssd_scan_bwd(*args, chunk=32, **kw))
+    assert n == 5, per_kernel
+
+
+def test_ssd_scan_bwd_refuses_what_it_does_not_take(cuda):
+    """Shapes outside _SHAPES, a dy of another dtype or shape, a d_final
+    not in f32: ValueError before any launch."""
+    from repro_torch import kernels as K
+    args, _ = _scan_bwd_case(cuda, torch.float32, 1, 8, 2, 32, 1, 16,
+                             False, False, 0.0, seed=1)
+    x, dt, A, Bm, Cm, dy = args
+    before = K.ssd_scan_bwd.launches
+    x48 = torch.zeros((1, 8, 2, 48), device=cuda)          # hd 48
+    with pytest.raises(ValueError):
+        K.ssd_scan_bwd(x48, dt, A, Bm, Cm, x48, chunk=8)
+    b128 = torch.zeros((1, 8, 1, 128), device=cuda)        # (32, 128)
+    with pytest.raises(ValueError):
+        K.ssd_scan_bwd(x, dt, A, b128, b128, dy, chunk=8)
+    with pytest.raises(ValueError):
+        K.ssd_scan_bwd(x, dt, A, Bm, Cm, dy.bfloat16(), chunk=8)
+    with pytest.raises(ValueError):
+        K.ssd_scan_bwd(x, dt, A, Bm, Cm, dy[:, :4].contiguous(), chunk=8)
+    with pytest.raises(ValueError):
+        K.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, chunk=8,
+                       d_final=torch.zeros((1, 2, 32, 16), device=cuda,
+                                           dtype=torch.bfloat16))
+    assert K.ssd_scan_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["x", "Bm", "Cm", "dy", "init_state",
+                                  "d_final"])
+def test_ssd_scan_bwd_refuses_misaligned_tensors(cuda, dtype, name):
+    from repro_torch import kernels as K
+    B, S, nh, hd, ds = 1, 40, 2, 64, 64
+    shapes = dict(x=(B, S, nh, hd), Bm=(B, S, 1, ds), Cm=(B, S, 1, ds),
+                  dy=(B, S, nh, hd), init_state=(B, nh, hd, ds),
+                  d_final=(B, nh, hd, ds))
+    t = {k: torch.zeros(v, dtype=torch.float32 if k in ("init_state",
+                                                         "d_final")
+                        else dtype, device=cuda) for k, v in shapes.items()}
+    t[name] = _misaligned(shapes[name], t[name].dtype, cuda)
+    assert t[name].is_contiguous() and t[name].data_ptr() % 16
+    dt = torch.full((B, S, nh), 0.5, device=cuda)
+    A = -torch.ones((nh,), device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        K.ssd_scan_bwd(t["x"], dt, A, t["Bm"], t["Cm"], t["dy"], chunk=32,
+                       init_state=t["init_state"], d_final=t["d_final"])
+
+
+def test_ssd_scan_autograd_runs_the_backward_kernel(cuda):
+    """Under autograd on the card ssd_scan is SsdScan: the forward
+    kernel, then one ssd_scan_bwd launch whose gradients are the direct
+    call's bit for bit, init_state's included; with the final state
+    unread the kernel takes no d_final."""
+    from repro_torch import kernels as K
+    args, kw = _scan_bwd_case(cuda, torch.float32, 2, 100, 4, 64, 1, 64,
+                              True, False, -5.0, seed=9)
+    x, dt, A, Bm, Cm, dy = args
+    leaves = [t.clone().requires_grad_(True)
+              for t in (x, dt, A, Bm, Cm, kw["init_state"])]
+    before = (K.ssd_scan.launches, K.ssd_scan_bwd.launches)
+    y, _ = K.ssd_scan(*leaves[:5], chunk=32, init_state=leaves[5])
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (K.ssd_scan.launches, K.ssd_scan_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = K.ssd_scan_bwd(*args, chunk=32, init_state=kw["init_state"])
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
+
+
+def test_ssm_loss_gradient_on_the_card_equals_the_cpu(cuda):
+    """loss_and_grads of a 2-layer mamba2-370m reduced to d 128 (head dim
+    32, state 16, chunk 32), f32, 2 x 70 tokens (three chunks, the last
+    ragged), on the card (ssd_scan and ssd_scan_bwd) and on the CPU
+    (their plain versions) from the same params: the loss within 2e-5,
+    every leaf within 1e-4 of its largest magnitude, one backward launch
+    per SSM layer."""
+    from repro_torch import kernels as K
+    from repro_torch.bridge import flatten, init_params
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models.model import params_to
+    cfg = ARCHS["mamba2-370m"].reduced(num_layers=2, max_d_model=128,
+                                       max_vocab=256)
+    params = init_params(cfg, seed=0, device="cpu")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(0, 256,
+                                                             (2, 70)))
+    lc, gc = loss_and_grads(cfg, params, toks)
+    before = K.ssd_scan_bwd.launches
+    lg, gg = loss_and_grads(cfg, params_to(params, cuda), toks.to(cuda))
+    assert K.ssd_scan_bwd.launches - before == cfg.num_layers
+    assert abs(float(lc) - float(lg)) <= 2e-5
+    for key, want in flatten(gc).items():
+        _rel_close(flatten(gg)[key].cpu(), want, 1e-4)
+
+
 # ------------------------------------------ decode loops as CUDA graphs ---
 
 def _graph_model(name, dev, policy=None):
@@ -1076,9 +1236,9 @@ def test_grouped_ffn_autograd_runs_the_backward_kernel(cuda):
 
 
 def test_kernels_without_a_backward_refuse_gradients(cuda):
-    """moe_ffn, decode_attention (both entry points) and ssd_scan raise
-    on the card when autograd would record them; under no_grad, and on
-    the CPU, they run."""
+    """moe_ffn and decode_attention (both entry points) raise on the card
+    when autograd would record them; under no_grad, and on the CPU, they
+    run. (ssd_scan has its gradient kernel: SsdScan, tested above.)"""
     from repro_torch import kernels as K
     g = torch.Generator().manual_seed(3)
     x = rand(g, (4, 64), torch.float32).to(cuda).requires_grad_(True)
@@ -1090,17 +1250,12 @@ def test_kernels_without_a_backward_refuse_gradients(cuda):
     q = rand(g, (2, 4, 32), torch.float32).to(cuda).requires_grad_(True)
     kv = rand(g, (2, 16, 2, 32), torch.float32).to(cuda)
     lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
-    xs = rand(g, (1, 40, 2, 64), torch.float32).to(cuda).requires_grad_(True)
-    dt = torch.rand((1, 40, 2), generator=g).to(cuda)
-    bc = rand(g, (1, 40, 1, 64), torch.float32).to(cuda)
     calls = {
         "moe_ffn": lambda: K.moe_ffn(x, w1, w3, w2, comb, act,
                                      max_active=2),
         "decode_attention": lambda: K.decode_attention(q, kv, kv, lens),
         "decode_attention ": lambda: K.decode_attention_cached(
             q[:, None], kv, kv, lens),
-        "ssd_scan": lambda: K.ssd_scan(xs, dt, -torch.ones(2, device=cuda),
-                                       bc, bc, chunk=16),
     }
     for name, call in calls.items():
         with pytest.raises(RuntimeError, match=f"{name.strip()}.*no "

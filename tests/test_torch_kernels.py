@@ -352,9 +352,11 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
     xs = torch.zeros((1, 8, 2, 32))
     bc = torch.zeros((1, 8, 1, 16))
     K.ssd_scan(xs, torch.ones((1, 8, 2)), -torch.ones(2), bc, bc, chunk=4)
+    K.ssd_scan_bwd(xs, torch.ones((1, 8, 2)), -torch.ones(2), bc, bc, xs,
+                   chunk=4)
     assert K.launch_counts() == {"grouped_ffn": 0, "moe_ffn": 0,
                                  "decode_attention": 0, "ssd_scan": 0,
-                                 "grouped_ffn_bwd": 0}
+                                 "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
 
 
 class ElsewhereTensor:

@@ -572,10 +572,11 @@ def test_prefix_embeds_and_unported_train_inputs_raise(models):
 
 @pytest.mark.parametrize("name", ["mamba2-370m", "zamba2-1.2b"])
 def test_ssm_and_hybrid_train_on_the_cpu(name):
-    """The SSM and hybrid families train on the CPU through the plain
-    scan under autograd (on the card ssd_scan refuses gradients): remat
-    on and off give the same loss and gradients, and the SSM weights get
-    one."""
+    """The SSM and hybrid families train on the CPU through SsdScan (the
+    plain scan forward, ssd_scan_bwd_plain backward; on the card the two
+    kernels, tests/test_torch_gpu.py): remat on and off give the same
+    loss and gradients, and the SSM weights get one. Their gradients
+    against jax.grad are in tests/test_torch_ssd_bwd.py."""
     from repro_torch.launch.train import loss_and_grads
     cfg = ARCHS[name].reduced(num_layers=2, max_d_model=64, max_vocab=128)
     params = bridge.init_params(cfg, seed=0, device="cpu")
