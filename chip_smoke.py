@@ -392,6 +392,15 @@ def bound_ms(nbytes: float, flops: float, dtype):
                                        else "operations")
 
 
+def bound_tc_ms(nbytes: float, flops: float) -> float:
+    """The least ms of f32 work done as 3xTF32 products on the tensor
+    cores (three TF32 products for each f32 one, ssd_scan_bwd's route):
+    the larger of the bytes over the HBM rate and 3 · flops over the
+    TF32 peak of ``repro_torch.launch.roofline``."""
+    from repro_torch.launch import roofline as R
+    return max(nbytes / R.HBM_BW, 3 * flops / R.PEAK_FLOPS_TF32) * 1e3
+
+
 def cuda_kernels(prof):
     """The CUDA kernels a torch.profiler run saw, one averaged event per
     kernel name (``count`` calls, ``self_device_time_total`` us)."""
@@ -1219,7 +1228,9 @@ def ssd_bwd_cases(archs):
     training path's dtype) and bf16, init_state and d_final nonzero in
     the shift -5 case of each dtype. Each gradient
     within SCAN_BWD_TOL of its largest magnitude, every output finite,
-    two calls bit-equal; timed beside ssd_bwd_work's bound, with its CUDA
+    two calls bit-equal; timed beside ssd_bwd_work's bound (bound_ms, by
+    the inputs' dtype: f32 on the CUDA cores) and the same work as
+    3xTF32 products on the tensor cores (bound_tc_ms), with its CUDA
     kernels per call and their device us. No PyTorch call computes this
     function (library_ms None). Own generator."""
     from repro_torch.kernels import ssd_scan_bwd, ssd_scan_bwd_plain
@@ -1289,12 +1300,14 @@ def ssd_bwd_cases(archs):
                          for k in SSD_BWD_KERNELS},
                 plain_ms=time_ms(lambda: ssd_scan_bwd_plain(*args, **kw),
                                  iters=5),
-                bound_ms=bms, bound_by=by, library_ms=None, bytes=nbytes,
-                flops=flops)
+                bound_ms=bms, bound_by=by,
+                bound_tc_ms=bound_tc_ms(nbytes, flops), library_ms=None,
+                bytes=nbytes, flops=flops)
             log(f"ssd_scan_bwd {name} S={S} {dtype} dt_shift={shift} "
                 f"states={states}: errors / max |ref| {errs} (limit "
                 f"{SCAN_BWD_TOL[dtype]}), bit-equal {bit_equal}; {ms:.4f} "
-                f"ms (bound {bms:.4f} by {by}), {case['tflops']:.2f} "
+                f"ms (bound {bms:.4f} by {by}, on the tensor cores "
+                f"{case['bound_tc_ms']:.4f}), {case['tflops']:.2f} "
                 f"TFLOP/s, plain {case['plain_ms']:.3f} ms, {n_kern} CUDA "
                 f"kernels per call, device us by pass {case['pass_us']}")
             out.append(case)

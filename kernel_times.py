@@ -15,8 +15,8 @@ checkout's kernels. Cases a tree's kernel has no instance for (head dim
 80, h2o-danube's, and 16, the trained speculation's, before they were
 built; grouped_ffn_bwd and ssd_scan_bwd before they existed) are left
 out for that tree;
-a tree without ``repro_torch/launch/roofline.py`` takes this checkout's
-peaks for the bounds. Prints one JSON line per case (source, kernel,
+every tree takes this checkout's ``repro_torch/launch/roofline.py``
+for the bounds (the card's peaks; an older tree's lacks some or all). Prints one JSON line per case (source, kernel,
 dtype, case, ms, the library call's or yardstick's ms, CUDA kernels per
 call);
 FILE gets every case in full. To compare commits A and B, run A, B, B, A in one call."""
@@ -32,7 +32,8 @@ import chip_smoke
 
 KEYS = ("dtype", "case", "policy", "model", "lengths", "init_state",
         "d_final", "dt_shift", "rel_err", "bit_equal",
-        "active", "max_active", "ms", "library_ms", "ms_over_sdpa",
+        "active", "max_active", "ms", "bound_ms", "bound_tc_ms",
+        "library_ms", "ms_over_sdpa",
         "grouped_mm_ms", "sgemm_tflops", "kernels_per_call", "pass_us",
         "pass_tflops", "max_abs_err", "ok")
 
@@ -49,18 +50,16 @@ def main() -> int:
     src = args.src.resolve()
     sys.path.insert(0, str(src))
     import repro_torch
+    import repro_torch.launch  # noqa: F401  (the package, then its peaks)
     from repro_torch.configs.registry import ARCHS
     from repro_torch.kernels import build
     if src not in Path(repro_torch.__file__).resolve().parents:
         raise RuntimeError(f"repro_torch came from {repro_torch.__file__}")
-    try:
-        import repro_torch.launch.roofline  # noqa: F401  (the peaks)
-    except ModuleNotFoundError:   # a tree from before it: this checkout's
-        name = "repro_torch.launch.roofline"
-        spec = importlib.util.spec_from_file_location(
-            name, chip_smoke.ROOT / "src/repro_torch/launch/roofline.py")
-        sys.modules[name] = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(sys.modules[name])
+    name = "repro_torch.launch.roofline"   # this checkout's peaks
+    spec = importlib.util.spec_from_file_location(
+        name, chip_smoke.ROOT / "src/repro_torch/launch/roofline.py")
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
     torch.backends.cuda.matmul.allow_tf32 = False
     build.build()
     from repro_torch import kernels as K

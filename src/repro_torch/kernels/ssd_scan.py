@@ -23,6 +23,9 @@ from repro_torch.kernels import build
 # (head dim, state width) pairs the kernel is built for: mamba2-370m,
 # zamba2-1.2b, and both reduced to d_model 128
 _SHAPES = ((64, 128), (64, 64), (32, 16))
+# state elements a warp of ssd_scan_bwd's state pass owns (SLICE in
+# csrc/ssd_scan_bwd.cu)
+_STATE_SLICE = 128
 
 
 def _work_dtype(x: torch.Tensor) -> torch.dtype:
@@ -325,11 +328,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """ssd_scan's gradient for the cotangents dy (B, S, nh, hd) in x's
     dtype and d_final (B, nh, hd, ds) f32 or None: returns (dx, ddt, dA,
     dBm, dCm, d_init_state), see ``ssd_scan_bwd_plain``. On the card the
-    kernels of csrc/ssd_scan_bwd.cu, in f32 on the CUDA cores (bf16
-    inputs widened), with every sum in a fixed order and no atomics, so
-    two calls give the same bits; the forward's contract on shapes,
-    dtypes, contiguity and alignment, dy and d_final included. On the
-    CPU and meta the plain version."""
+    kernels of csrc/ssd_scan_bwd.cu, every product on the tensor cores
+    at f32 accuracy (3xTF32: each operand split into two TF32 values;
+    bf16 inputs are exact in TF32), with every sum in a fixed order and
+    no atomics, so two calls give the same bits; the forward's contract
+    on shapes, dtypes, contiguity and alignment, dy and d_final
+    included. On the CPU and meta the plain version."""
     if x.device.type in build.PLAIN_DEVICES:
         return ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, chunk=chunk,
                                   init_state=init_state, d_final=d_final)
@@ -350,12 +354,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # f32 scratch: cum, the two halves of its cotangent (row and column
     # sums) and r_j per position; the chunks' own states (the entering
     # states written over them) and G_c (D_c written over it); per chunk
-    # cum_last's cotangent from the state recursion and the dA partials;
-    # dB and dC per head before the group sums
+    # <D_c, H_c> by slice of 128 state elements (the state pass's warps)
+    # and the dA partials; dB and dC per head before the group sums
     cum, dcum_row, dcum_col, rpos = (torch.empty((Bsz, nc, nh, l), **f32)
                                      for _ in range(4))
     hs, gs = (torch.empty((Bsz, nc, nh, hd, ds), **f32) for _ in range(2))
-    dlast = torch.empty((Bsz, nc, nh), **f32)
+    dlast = torch.empty((Bsz, nc, nh, hd * ds // _STATE_SLICE), **f32)
     dA_part = torch.empty((Bsz, nc, nh), **f32)
     dBh, dCh = (torch.empty((Bsz, S, nh, ds), **f32) for _ in range(2))
 

@@ -4,7 +4,8 @@ and byte counts of the model (the JAX package's
 
 Peaks of one H100 SXM5 80GB HBM3 at its 700 W power limit, from NVIDIA's
 data sheet (dense, no sparsity): 989e12 bf16 FLOP/s on the tensor cores,
-67e12 f32 FLOP/s outside them, 3.35e12 bytes/s of HBM3, and 450e9
+495e12 TF32 FLOP/s on them, 67e12 f32 FLOP/s outside them, 3.35e12
+bytes/s of HBM3, and 450e9
 bytes/s per direction over NVLink 4 for the collective term:
 
   compute    = flops / PEAK_FLOPS
@@ -28,6 +29,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, XSharePolicy
 
 PEAK_FLOPS = 989e12      # bf16 FLOP/s, tensor cores, dense
 PEAK_FLOPS_F32 = 67e12   # f32 FLOP/s outside the tensor cores
+PEAK_FLOPS_TF32 = 495e12  # TF32 FLOP/s, tensor cores, dense
 HBM_BW = 3.35e12         # bytes/s of HBM3
 LINK_BW = 450e9          # bytes/s per direction, NVLink 4
 

@@ -801,6 +801,8 @@ def _scan_bwd_case(dev, dtype, B, S, nh, hd, g, ds, init, d_final,
     (8, 500, 32, 64, 1, 128, 256, False, False),  # mamba2-370m's train
     (8, 500, 64, 64, 1, 64, 128, True, True),     # zamba2-1.2b's
     (1, 129, 4, 64, 1, 64, 128, True, True),    # a last chunk of 1
+    (1, 200, 4, 64, 1, 128, 80, True, True),    # chunk 80: tiles 64 + 16
+    (2, 50, 4, 32, 2, 16, 8, True, False),      # chunk 8: below one mma
 ])
 def test_ssd_scan_bwd_kernel(cuda, dtype, dt_shift, B, S, nh, hd, g, ds,
                              chunk, init, d_final):

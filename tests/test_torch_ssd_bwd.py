@@ -15,7 +15,13 @@ autograd of its own plain forward instead, and a test shows both sides.
 Tolerances, of each gradient's largest magnitude: 2e-5 in f32, 2e-2
 with bf16 inputs (their rounding of y, dx, dB and dC), 1e-10 in
 float64, 1e-4 for the loss gradients (tests/test_torch_train.py's
-LEAF_TOL)."""
+LEAF_TOL).
+
+The kernel's precision plan is pinned here too: it takes every f32
+product on the tensor cores as three TF32 products (3xTF32, csrc/
+common.cuh), and ``ssd_scan_bwd_plain`` with its products rounded that
+way stays within the card's f32 gate (1e-4) of float64, where a single
+TF32 product does not."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -273,3 +279,63 @@ def test_ssm_loss_gradient_matches_jax_for_every_leaf(ssm_grads, name,
     worst = max(errs, key=errs.get)
     assert errs[worst] <= LEAF_TOL, (worst, errs[worst])
     assert float(tflat["layers/ssm/A_log"].abs().max()) > 0
+
+
+# --------------------------------------- the CUDA kernel's precision plan
+
+def tf32(t):
+    """f32 rounded to TF32 as cvt.rna.tf32.f32 rounds: 10 mantissa bits,
+    ties away from zero (half an ulp added to the magnitude's bits, the
+    13 low bits cleared)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_einsum(real, split, calls):
+    """torch.einsum with every two-operand f32 product taken as the
+    kernel's mma.sync takes it: split (a = hi + lo, hi = tf32(a), lo =
+    tf32(a - hi); lo·hi + hi·lo + hi·hi summed in f32, in that order) or
+    a single TF32 product hi·hi. Other calls go to ``real``."""
+    def einsum(eq, *ops):
+        if len(ops) != 2 or any(o.dtype != torch.float32 for o in ops):
+            return real(eq, *ops)
+        calls.append(eq)
+        a, b = ops
+        ah, bh = tf32(a), tf32(b)
+        if not split:
+            return real(eq, ah, bh)
+        al, bl = tf32(a - ah), tf32(b - bh)
+        return real(eq, al, bh) + real(eq, ah, bl) + real(eq, ah, bh)
+    return einsum
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["3xtf32", "1xtf32"])
+@pytest.mark.parametrize("nh,ds,chunk", [(4, 128, 256), (8, 64, 128)],
+                         ids=["mamba2", "zamba2"])
+def test_tf32_split_holds_the_f32_gate_and_one_tf32_product_does_not(
+        monkeypatch, nh, ds, chunk, split):
+    """At mamba2-370m's widths reduced to 4 heads (hd 64, ds 128, chunk
+    256) and zamba2-1.2b's reduced to 8 (ds 64, chunk 128), S 512, dt ~
+    0.8 (the train phases' draw), dy 0 at the last position:
+    ssd_scan_bwd_plain in f32 with every two-operand product split as
+    3xTF32 keeps every gradient within 1e-4 of its largest magnitude of
+    float64 (SCAN_BWD_TOL, the kernel's f32 gate on the card); with a
+    single TF32 product some gradient misses it."""
+    x, dt, A, Bm, Cm, _, dy, _ = inputs(25, 1, 512, nh, 64, 1, ds,
+                                        init=False, d_final=False,
+                                        dt_shift=0.0)
+    dy[:, -1] = 0
+    arrs = (x, dt, A, Bm, Cm, dy)
+    exact = K.ssd_scan_bwd_plain(*[torch.tensor(a) for a in arrs],
+                                 chunk=chunk)
+    calls = []
+    monkeypatch.setattr(torch, "einsum",
+                        tf32_einsum(torch.einsum, split, calls))
+    got = K.ssd_scan_bwd_plain(
+        *[torch.tensor(a, dtype=torch.float32) for a in arrs], chunk=chunk)
+    assert len(calls) >= 9     # every product of the plain version
+    errs = {n: rel_err(g_, w.numpy()) for n, g_, w in zip(NAMES, got, exact)}
+    if split:
+        assert max(errs.values()) <= 1e-4, errs
+    else:
+        assert max(errs.values()) > 1e-4, errs
