@@ -58,6 +58,13 @@ each prints its wall time):
                 each gradient within 1e-4 (f32) / 2e-2 (bf16) of its
                 largest magnitude, two calls bit-equal, at most 5 CUDA
                 kernels a call, each pass's device us;
+                moe_ffn_bwd (moe_ffn's gradient) at granite's decode
+                shape (8 tokens, 32 experts) and its draft's (d 128, 4
+                experts top-2), f32 and bf16, policy off and batch (k0
+                1, m_l 8), combine route()'s column slice: each gradient
+                within TOL of its largest magnitude, the experts outside
+                the slots exactly zero, two calls bit-equal, exactly 3
+                CUDA kernels a call;
                 decode_attention also at the families phase's decode
                 shapes, T = 1, cur_len drawn per row over the served
                 lengths in a cache of 512: paligemma-3b (8 rows, 8 query
@@ -254,7 +261,17 @@ each prints its wall time):
                 steps whose loss must fall, with exact launches
                 (ssd_scan_bwd once per layer per step, ssd_scan twice),
                 step time, tokens/s, peak memory and the backward
-                kernel's share of a step's device time.
+                kernel's share of a step's device time; (f), after (b):
+                the dense path (moe_ffn and moe_ffn_bwd): 4 x 8 tokens
+                at capacity_factor 4, so every MoE layer's 32 tokens
+                take it: as (a) on granite's 2 layers, moe_ffn_bwd once
+                per layer and grouped_ffn never, then all 24 layers, f32,
+                remat, 10 steps whose loss must fall, moe_ffn_bwd
+                exactly 24 x 10 times (moe_ffn twice that), the step's
+                device ms and the backward's share, then the train CLI
+                (python -m repro_torch.launch.train --arch
+                granite-moe-1b-a400m --reduced --batch 1 --seq 4) in a
+                subprocess, which must exit 0.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -265,6 +282,7 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -316,12 +334,19 @@ SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
 # magnitude: the scan's f32 bar (dcum's row and column sums cancel), and
 # one rounding of dx, dB, dC to bf16 on either side
 SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# moe_ffn_bwd's three passes (csrc/moe_ffn_bwd.cu)
+MOE_BWD_KERNELS = ("moe_bwd_act_kernel", "moe_bwd_grad_kernel",
+                   "moe_bwd_reduce_kernel")
+# the dense path's training phases: capacity_factor 4 keeps every token of
+# a 32-token MoE layer (granite's top-8 of 32 experts), so T <= 32 and
+# expert_ffn takes moe_ffn
+DENSE_CF = 4.0
 # every __global__ function of src/repro_torch/kernels/csrc (name prefixes)
 PORT_KERNELS = SSD_KERNELS + ("grouped_tc_kernel", "grouped_f32_kernel",
                               "moe_up_kernel", "moe_down_kernel",
                               "moe_reduce_kernel", "decode_split_kernel",
                               "decode_merge_kernel") + BWD_KERNELS \
-    + SSD_BWD_KERNELS
+    + SSD_BWD_KERNELS + MOE_BWD_KERNELS
 
 
 def log(*a):
@@ -1084,11 +1109,14 @@ def grouped_mm_yardstick(plan, xs, w1, w3, w2):
 
 def check_kernel_counts(cases):
     """decode_attention's and grouped_ffn's design: at most 2 CUDA
-    kernels per call (split + merge; up + down); grouped_ffn_bwd's at
-    most 3 (dA / dB / H, dxs, the weight gradients); ssd_scan_bwd's at
-    most 5 (chunk states, state pass, chunk tiles, dcum, group sums)."""
+    kernels per call (split + merge; up + down); grouped_ffn_bwd's and
+    moe_ffn_bwd's at most 3 (dA / dB / H, dxs, the weight gradients; A,
+    B and G, the weight gradients and dx's parts, the sums);
+    ssd_scan_bwd's at most 5 (chunk states, state pass, chunk tiles,
+    dcum, group sums)."""
     for name, most in (("decode_attention", 2), ("grouped_ffn", 2),
-                       ("grouped_ffn_bwd", 3), ("ssd_scan_bwd", 5)):
+                       ("grouped_ffn_bwd", 3), ("moe_ffn_bwd", 3),
+                       ("ssd_scan_bwd", 5)):
         for c in cases.get(name, ()):
             if not 1 <= c["kernels_per_call"] <= most:
                 fail(f"{name} {c['dtype']} {c.get('model', '')}: one call "
@@ -1525,7 +1553,8 @@ def spec_expect(cfg, dcfg, rounds: int, spec_len: int):
             "moe_ffn": rounds * ((spec_len + 1) * Ld
                                  + (0 if sorted_verify else L)),
             "decode_attention": rounds * ((spec_len + 1) * Ld + L),
-            "ssd_scan": 0, "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
+            "ssd_scan": 0, "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0,
+            "moe_ffn_bwd": 0}
 
 
 def spec_served(cfg, params, prompts, plain_tokens, *, new=32,
@@ -2738,7 +2767,8 @@ def ep_serve_phase(cfg, params, prompts, *, new=32, cache_len=512):
         steps = -(-(new - 1) // eng.decode_chunk) * eng.decode_chunk
         return {"grouped_ffn": L * (1 + steps), "moe_ffn": 0,
                 "decode_attention": L * steps, "ssd_scan": 0,
-                "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
+                "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0,
+                "moe_ffn_bwd": 0}
 
     out = {}
     for name, (pol, ex) in settings.items():
@@ -3480,7 +3510,8 @@ def cli_expect(cfg, run: str, stats, decode_chunk: int):
     L = cfg.num_layers
     return {"grouped_ffn": L, "moe_ffn": L * steps,
             "decode_attention": L * steps, "ssd_scan": 0,
-            "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
+            "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0,
+            "moe_ffn_bwd": 0}
 
 
 def serve_cli_phase(cfg, prof):
@@ -3740,6 +3771,101 @@ def grouped_bwd_cases(archs):
     return out
 
 
+def moe_bwd_cases(archs):
+    """moe_ffn_bwd against moe_ffn_bwd_plain at granite-moe's decode shape
+    (8 tokens, d 1024, f 512, 32 experts top-8) and at its small
+    draft's (d 128, 4 experts top-2 of width 128), f32 and bf16, each
+    under policy off and batch (k0 1, m_l 8); route() gives combine as
+    the column slice it hands moe_ffn. Own generator, last in the
+    phase."""
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.moe import OFF
+
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(2626)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=CUDA)
+                ).to(dtype)
+    out = []
+    cfg = archs[ARCH]
+    for label, c in ((ARCH, cfg), (f"{ARCH} draft", draft_config(cfg))):
+        d, m = c.d_model, c.moe
+        E, f = m.num_experts, m.d_ff_expert
+        wg = randn(d, E, scale=0.02)
+        x32 = randn(8, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            w1, w3 = (randn(E, d, f, scale=0.02, dtype=dtype)
+                      for _ in range(2))
+            w2 = randn(E, f, d, scale=0.02, dtype=dtype)
+            dy = randn(8, d, scale=0.01, dtype=dtype)
+            for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)):
+                out.append(moe_bwd_case(label, x32.to(dtype), wg, w1, w3,
+                                        w2, dy, m, pol, dtype))
+            del w1, w3, w2
+    return out
+
+
+def moe_bwd_case(label, xt, wg, w1, w3, w2, dy, mcfg, pol, dtype):
+    """One moe_ffn_bwd case: each gradient (dx, dw1, dw3, dw2, dcombine)
+    within TOL of its largest magnitude, the weight gradients and
+    combine columns of the experts outside the slots exactly zero, two
+    calls bit-equal, exactly 3 CUDA kernels a call; timed beside its
+    bound: the selected experts' weights, x, dy and combine read once,
+    dx, dcombine and all E experts' weight gradients written once, 16
+    operations per (token, expert) pair of nonzero weight and d f."""
+    from repro_torch.kernels import moe_ffn_bwd, moe_ffn_bwd_plain
+    from repro_torch.models.moe import policy_max_active, route
+
+    sz = torch.finfo(dtype).bits // 8
+    (T, d), (E, _, f) = xt.shape, w1.shape
+    _, _, combine, _ = route({"wg": wg}, xt, mcfg, pol)
+    active = (combine != 0).any(0)
+    ma = policy_max_active(pol, T, E)
+    args = (xt, w1, w3, w2, combine, active, dy)
+
+    def kernel():
+        return moe_ffn_bwd(*args, max_active=ma)
+    ker, again = kernel(), kernel()
+    ref = moe_ffn_bwd_plain(*args, max_active=ma)
+    errs = {}
+    for name, a, r in zip(("dx", "dw1", "dw3", "dw2", "dcombine"), ker, ref):
+        errs[name] = max_err(a, r) / max(float(r.float().abs().max()), 1e-30)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(ker, again))
+    n_act = int(active.sum())
+    off = ~active
+    zeros = not bool(off.any()) or (
+        all(float(t[off].abs().max()) == 0.0 for t in ker[1:4])
+        and float(ker[4][:, off].abs().max()) == 0.0)
+    nnz = int((combine != 0).sum())
+    nbytes = (2 * T * d * sz + T * E * 4 + E + n_act * 3 * d * f * sz
+              + T * d * sz + E * 3 * d * f * sz + T * E * 4)
+    bms, by = bound_ms(nbytes, 16.0 * nnz * d * f, dtype)
+    n_kern, kern_us = cuda_kernels_of(kernel)
+    case = dict(
+        dtype=str(dtype).replace("torch.", ""), model=label,
+        policy=pol.mode,
+        shape=f"T={T} d={d} f={f} E={E} active={n_act} max_active={ma}",
+        active=n_act, max_active=ma,
+        max_abs_err=max(max_err(a, r) for a, r in zip(ker, ref)),
+        rel_err=errs, tol=TOL[dtype], bit_equal=bit_equal,
+        outside_slots_zero=zeros,
+        ok=all(e <= TOL[dtype] for e in errs.values()) and bit_equal
+        and zeros and n_kern == 3,
+        kernels_per_call=n_kern, kernel_device_us=kern_us,
+        ms=time_ms(kernel),
+        plain_ms=time_ms(lambda: moe_ffn_bwd_plain(*args, max_active=ma),
+                         iters=5),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    log(f"moe_ffn_bwd {label} {dtype} policy={pol.mode}: active={n_act} "
+        f"max_active={ma}, errors / max |ref| {errs} (limit {TOL[dtype]}), "
+        f"bit-equal {bit_equal}, outside the slots zero {zeros}; "
+        f"{case['ms']:.4f} ms (bound {bms:.4f} by {by}), plain "
+        f"{case['plain_ms']:.3f} ms, {n_kern} CUDA kernels per call: "
+        f"{kern_us}")
+    return case
+
+
 def bwd_passes(kern_us, rows: int, d: int, f: int):
     """({pass: device us}, {pass: TFLOP/s on the real rows}) of one
     grouped_ffn_bwd call from cuda_kernels_of's per-kernel times."""
@@ -3807,13 +3933,15 @@ def tree_errs(got, want):
             / max(float(w[k].float().abs().max()), 1e-30) for k in w}
 
 
-def train_parity(cfg, *, seq: int = 64, bwd: str = "grouped_ffn_bwd"):
+def train_parity(cfg, *, seq: int = 64, bwd: str = "grouped_ffn_bwd",
+                 capacity_factor: float = 1.25, never: tuple = ()):
     """``cfg`` cut to 2 layers, f32, the same seeded params and 4 x
     ``seq`` synthetic tokens on the CPU (plain versions) and on the card
-    (the kernels: granite-moe's grouped_ffn and its backward, an SSM
-    layer's ssd_scan and ssd_scan_bwd): loss_and_grads, every gradient
-    leaf within TRAIN_LEAF_TOL of its largest magnitude, and ``bwd``
-    launched once per layer; then one make_train_step (remat, clip,
+    (the kernels: granite-moe's grouped_ffn and its backward, or at
+    DENSE_CF moe_ffn and moe_ffn_bwd; an SSM layer's ssd_scan and
+    ssd_scan_bwd): loss_and_grads, every gradient leaf within
+    TRAIN_LEAF_TOL of its largest magnitude, ``bwd`` launched once per
+    layer and no kernel of ``never``; then one make_train_step (remat, clip,
     AdamW at its default schedule): its loss within TRAIN_LOSS_TOL, its
     grad_norm within TRAIN_LEAF_TOL, the loss of the updated params on
     the same tokens within TRAIN_LOSS_TOL, and every updated leaf that
@@ -3836,21 +3964,24 @@ def train_parity(cfg, *, seq: int = 64, bwd: str = "grouped_ffn_bwd"):
     params = init_params(cfg2, seed=0, dtype=torch.float32, device="cpu")
     toks = SyntheticLM(cfg.vocab_size, name=cfg.name).sample(
         np.random.default_rng(0), 4, seq)
-    step = make_train_step(cfg2)
+    step = make_train_step(cfg2, capacity_factor=capacity_factor)
     runs = []
     for dev in ("cpu", CUDA):
         p = params_to(params, dev)
         t = torch.as_tensor(toks, device=dev)
         K.reset_launch_counts()
-        loss, grads = loss_and_grads(cfg2, p, t)
+        loss, grads = loss_and_grads(cfg2, p, t,
+                                     capacity_factor=capacity_factor)
         launched = K.KERNELS[bwd].launches
+        stray = {k: K.KERNELS[k].launches for k in never}
         new, _, m = step(p, adamw_init(p), toks)
         with torch.no_grad():
             after = float(loss_fn(cfg2, new, t)[0])
         runs.append((float(loss), grads, new, float(m["loss"]),
-                     float(m["grad_norm"]), after, launched))
+                     float(m["grad_norm"]), after, launched, stray))
         del p
-    (lc, gc, pc, mc, nc, ac, _), (lg, gg, pg, mg, ng, ag, launched) = runs
+    (lc, gc, pc, mc, nc, ac, _, _), \
+        (lg, gg, pg, mg, ng, ag, launched, stray) = runs
     gerr, perr = tree_errs(gg, gc), tree_errs(pg, pc)
     zero = {k for k, v in flatten(params).items() if not bool(v.any())}
     gated = {k: e for k, e in perr.items() if k not in zero}
@@ -3872,7 +4003,8 @@ def train_parity(cfg, *, seq: int = 64, bwd: str = "grouped_ffn_bwd"):
                                          clipped_grad_over_eps=(
                                              clipped_over_eps(k)))
                                  for k in sorted(zero)},
-               bwd=bwd, bwd_launches=launched)
+               bwd=bwd, bwd_launches=launched,
+               capacity_factor=capacity_factor, never_launched=stray)
     log(f"train parity {cfg.name}: 2 layers f32, 4 x {seq} tokens, CPU vs "
         f"GPU: {json.dumps(res)} (limits: loss {TRAIN_LOSS_TOL}, leaves "
         f"{TRAIN_LEAF_TOL} of their largest magnitude)")
@@ -3881,9 +4013,9 @@ def train_parity(cfg, *, seq: int = 64, bwd: str = "grouped_ffn_bwd"):
             or perr[pworst] > TRAIN_LEAF_TOL \
             or abs(nc - ng) > TRAIN_LEAF_TOL * nc:
         fail(f"train parity {cfg.name}: CPU and GPU disagree")
-    if launched != cfg2.num_layers:
+    if launched != cfg2.num_layers or any(stray.values()):
         fail(f"train parity {cfg.name}: {launched} {bwd} launches, want "
-             f"one per layer ({cfg2.num_layers})")
+             f"one per layer ({cfg2.num_layers}); {stray}, want none")
     return res
 
 
@@ -3947,9 +4079,9 @@ def train_full_width(cfg, *, steps: int = 10, batch: int = 8,
     return res
 
 
-def train_steps(cfg, params, data, bwd_kernels):
-    """make_train_step (remat) at cosine_schedule(3e-4, 2, steps) over
-    the batches of ``data``, from ``params`` (consumed): losses,
+def train_steps(cfg, params, data, bwd_kernels, **kw):
+    """make_train_step (remat, ``kw``) at cosine_schedule(3e-4, 2, steps)
+    over the batches of ``data``, from ``params`` (consumed): losses,
     grad_norms, the median step after the first, tokens/s, peak memory
     and the launch counts of the steps (counters set to 0 just before
     the steps, read just after), then train_step_profile over one more
@@ -3961,7 +4093,7 @@ def train_steps(cfg, params, data, bwd_kernels):
 
     steps = len(data)
     opt = adamw_init(params)
-    step = make_train_step(cfg, lr=cosine_schedule(3e-4, 2, steps))
+    step = make_train_step(cfg, lr=cosine_schedule(3e-4, 2, steps), **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
@@ -3983,6 +4115,72 @@ def train_steps(cfg, params, data, bwd_kernels):
                 grad_norms=norms, step_s=step_s, first_step_s=times[0],
                 tokens_per_s=toks / step_s, peak_memory_gb=peak,
                 launches=launches, profile=prof)
+
+
+def train_dense_full_width(cfg, *, steps: int = 10, batch: int = 4,
+                           seq: int = 8):
+    """granite-moe at all its layers, f32 params, remat, on the dense
+    path: ``batch`` x ``seq`` = 32 tokens a step at DENSE_CF, so every
+    MoE layer runs moe_ffn (twice a step under remat) and moe_ffn_bwd
+    (once): train_steps on SyntheticLM(vocab, name=arch) batches, the
+    loss finite and falling, the launches exact (no grouped_ffn), the
+    step's device ms and moe_ffn_bwd's share of it."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data import SyntheticLM, batches
+
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=CUDA)
+    stream = batches(SyntheticLM(cfg.vocab_size, name=cfg.name),
+                     batch=batch, seq_len=seq, seed=0)
+    data = [next(stream) for _ in range(steps)]
+    L = cfg.num_layers
+    res = dict(layers=L, batch=batch, seq=seq, steps=steps,
+               capacity_factor=DENSE_CF)
+    res.update(train_steps(cfg, params, data, MOE_BWD_KERNELS,
+                           capacity_factor=DENSE_CF))
+    launches, prof = res["launches"], res["profile"]
+    log(f"train dense {cfg.name}: {L} layers, f32, remat, {batch} x {seq} "
+        f"tokens: {json.dumps(res)}")
+    log(f"train dense {cfg.name}: moe_ffn_bwd {prof['bwd_ms']:.3f} of the "
+        f"step's {prof['device_busy_ms']:.3f} device ms "
+        f"({100 * prof['bwd_share']:.1f} %); step {res['step_s']:.4f} s, "
+        f"{res['tokens_per_s']:.0f} tokens/s, peak "
+        f"{res['peak_memory_gb']:.2f} GB")
+    check_train_losses(cfg, res)
+    want = {"moe_ffn_bwd": L * steps, "moe_ffn": 2 * L * steps,
+            "grouped_ffn": 0, "grouped_ffn_bwd": 0}
+    if any(launches[k] != v for k, v in want.items()):
+        fail(f"train dense {cfg.name}: launches {launches}, want {want}")
+    torch.cuda.empty_cache()
+    return res
+
+
+# the train CLI on the dense path: granite-moe reduced, 1 x 4 tokens
+TRAIN_CLI = ["--arch", ARCH, "--reduced", "--batch", "1", "--seq", "4",
+             "--steps", "2"]
+
+
+def train_cli_phase():
+    """python -m repro_torch.launch.train TRAIN_CLI on the card, in a
+    subprocess (killed after 600 s): it must exit 0 and print a finite
+    loss for each step."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *TRAIN_CLI],
+        capture_output=True, text=True, timeout=600, env=env, cwd=ROOT)
+    lines = [ln for ln in run.stdout.splitlines() if ln.startswith("step")]
+    res = dict(cmd=" ".join(["python -m repro_torch.launch.train",
+                             *TRAIN_CLI]), rc=run.returncode, lines=lines,
+               wall_s=time.perf_counter() - t0)
+    log(f"train cli: {json.dumps(res)}")
+    if run.returncode != 0 or len(lines) != 2 or not all(
+            np.isfinite(float(ln.split()[3])) for ln in lines):
+        fail(f"train cli: exit {run.returncode}\n{run.stdout[-2000:]}\n"
+             f"{run.stderr[-4000:]}")
+    return res
 
 
 def check_train_losses(cfg, res):
@@ -4218,6 +4416,7 @@ def main() -> int:
         cases["ssd_scan"] = ssd_cases(ARCHS)
         cases["grouped_ffn_bwd"] = grouped_bwd_cases(ARCHS)
         cases["ssd_scan_bwd"] = ssd_bwd_cases(ARCHS)
+        cases["moe_ffn_bwd"] = moe_bwd_cases(ARCHS)
     bad = [(n, c["dtype"], c.get("policy"), c.get("model"),
             c.get("init_state"), c.get("dt_shift"))
            for n, cs in cases.items() for c in cs if not c["ok"]]
@@ -4344,6 +4543,13 @@ def main() -> int:
         train = {"parity": train_parity(cfg),
                  "full_width": train_full_width(cfg)}
         torch.cuda.empty_cache()
+    # the dense path: moe_ffn forward, moe_ffn_bwd backward
+    with Phase(f"train dense {ARCH}"):
+        train["dense parity"] = train_parity(
+            cfg, seq=8, bwd="moe_ffn_bwd", capacity_factor=DENSE_CF,
+            never=("grouped_ffn", "grouped_ffn_bwd"))
+        train["dense full_width"] = train_dense_full_width(cfg)
+        train["cli"] = train_cli_phase()
     # the SSM and hybrid families: ssd_scan forward, ssd_scan_bwd backward
     for name in SSM_ARCHS:
         with Phase(f"train parity {name}"):
@@ -4366,6 +4572,10 @@ def main() -> int:
                    "src/repro/kernels/moe_ffn.py:155"),
                "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
                            "src/repro/kernels/moe_ffn.py:77"),
+               # its gradient (the JAX package differentiates its dense
+               # jnp path, src/repro/models/moe.py:245-259)
+               "moe_ffn_bwd": ("src/repro_torch/kernels/csrc/moe_ffn_bwd.cu",
+                               "src/repro/kernels/moe_ffn.py:77"),
                "decode_attention": (
                    "src/repro_torch/kernels/csrc/decode_attn.cuh",
                    "src/repro/kernels/decode_attn.py:67"),
@@ -4378,7 +4588,8 @@ def main() -> int:
                    "src/repro/kernels/ssd_scan.py:66")}
     line = []
     bwd_runs = {"grouped_ffn_bwd": [train["full_width"]],
-                "ssd_scan_bwd": [train[n] for n in SSM_ARCHS]}
+                "ssd_scan_bwd": [train[n] for n in SSM_ARCHS],
+                "moe_ffn_bwd": [train["dense full_width"]]}
     for name, cs in cases.items():
         # serving's main path runs bf16; training (the backwards) f32
         main_dtype = "float32" if name in bwd_runs else "bfloat16"

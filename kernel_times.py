@@ -13,8 +13,8 @@ host's enqueueing outside the timed window). It holds each kernel to its
 plain version as those functions do, and checks no design goal of this
 checkout's kernels. Cases a tree's kernel has no instance for (head dim
 80, h2o-danube's, and 16, the trained speculation's, before they were
-built; grouped_ffn_bwd and ssd_scan_bwd before they existed) are left
-out for that tree;
+built; grouped_ffn_bwd, ssd_scan_bwd and moe_ffn_bwd before they
+existed) are left out for that tree;
 every tree takes this checkout's ``repro_torch/launch/roofline.py``
 for the bounds (the card's peaks; an older tree's lacks some or all). Prints one JSON line per case (source, kernel,
 dtype, case, ms, the library call's or yardstick's ms, CUDA kernels per
@@ -31,7 +31,7 @@ from pathlib import Path
 import chip_smoke
 
 KEYS = ("dtype", "case", "policy", "model", "lengths", "init_state",
-        "d_final", "dt_shift", "rel_err", "bit_equal",
+        "d_final", "dt_shift", "rel_err", "bit_equal", "outside_slots_zero",
         "active", "max_active", "ms", "bound_ms", "bound_tc_ms",
         "library_ms", "ms_over_sdpa",
         "grouped_mm_ms", "sgemm_tflops", "kernels_per_call", "pass_us",
@@ -70,6 +70,8 @@ def main() -> int:
             cases["grouped_ffn_bwd"] = chip_smoke.grouped_bwd_cases(ARCHS)
         if hasattr(K, "ssd_scan_bwd"):
             cases["ssd_scan_bwd"] = chip_smoke.ssd_bwd_cases(ARCHS)
+        if hasattr(K, "moe_ffn_bwd"):
+            cases["moe_ffn_bwd"] = chip_smoke.moe_bwd_cases(ARCHS)
     card = chip_smoke.gpu_name_power()
     for name, cs in cases.items():
         for c in cs:

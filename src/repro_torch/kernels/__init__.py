@@ -4,6 +4,7 @@ beside its plain PyTorch version.
   grouped_ffn       prefill's sorted expert FFN     (csrc/grouped_ffn.cu)
   grouped_ffn_bwd   its gradient, for training      (csrc/grouped_ffn_bwd.cu)
   moe_ffn           a decode step's masked FFN      (csrc/moe_ffn.cu)
+  moe_ffn_bwd       its gradient, for training      (csrc/moe_ffn_bwd.cu)
   decode_attention  flash-decode GQA over the cache (csrc/decode_attn.cuh)
   ssd_scan          Mamba2's chunked SSD scan       (csrc/ssd_scan.cu)
   ssd_scan_bwd      its gradient, for training      (csrc/ssd_scan_bwd.cu)
@@ -19,8 +20,8 @@ from repro_torch.kernels.decode_attn import (  # noqa: F401
     decode_attention_plain,
 )
 from repro_torch.kernels.moe_ffn import (  # noqa: F401
-    GroupedFFN, grouped_ffn, grouped_ffn_bwd, grouped_ffn_bwd_plain,
-    grouped_ffn_plain, moe_ffn, moe_ffn_plain,
+    GroupedFFN, MoeFFN, grouped_ffn, grouped_ffn_bwd, grouped_ffn_bwd_plain,
+    grouped_ffn_plain, moe_ffn, moe_ffn_bwd, moe_ffn_bwd_plain, moe_ffn_plain,
 )
 from repro_torch.kernels.ssd_scan import (  # noqa: F401
     SsdScan, ssd_scan, ssd_scan_bwd, ssd_scan_bwd_plain, ssd_scan_plain,
@@ -33,7 +34,7 @@ from repro_torch.kernels.ops import (  # noqa: F401
 KERNELS = {"grouped_ffn": grouped_ffn, "moe_ffn": moe_ffn,
            "decode_attention": decode_attention, "ssd_scan": ssd_scan,
            "grouped_ffn_bwd": grouped_ffn_bwd,
-           "ssd_scan_bwd": ssd_scan_bwd}
+           "ssd_scan_bwd": ssd_scan_bwd, "moe_ffn_bwd": moe_ffn_bwd}
 
 
 def reset_launch_counts() -> None:

@@ -1,17 +1,19 @@
-"""Expert-FFN kernels: the XShare masked expert FFN (``moe_ffn``), the
-sort-based grouped expert FFN (``grouped_ffn``) and its gradient
-(``grouped_ffn_bwd``), each with its plain PyTorch version beside it.
+"""Expert-FFN kernels: the XShare masked expert FFN (``moe_ffn``) and its
+gradient (``moe_ffn_bwd``), the sort-based grouped expert FFN
+(``grouped_ffn``) and its gradient (``grouped_ffn_bwd``), each with its
+plain PyTorch version beside it.
 
 A wrapper sends a CPU or meta tensor to the plain version (on meta it
 only propagates shapes) and a CUDA tensor to the hand-written kernel
-(``csrc/moe_ffn.cu``, ``csrc/grouped_ffn.cu``,
+(``csrc/moe_ffn.cu``, ``csrc/moe_ffn_bwd.cu``, ``csrc/grouped_ffn.cu``,
 ``csrc/grouped_ffn_bwd.cu``); there is no other fallback. Each wrapper
 counts its launches in a plain integer attribute, ``moe_ffn.launches``,
-``grouped_ffn.launches``, ``grouped_ffn_bwd.launches``.
+``moe_ffn_bwd.launches``, ``grouped_ffn.launches``,
+``grouped_ffn_bwd.launches``.
 
-Under autograd ``grouped_ffn`` is a ``torch.autograd.Function`` whose
-backward is ``grouped_ffn_bwd``; ``moe_ffn`` has no backward and on the
-card refuses an input that requires grad.
+Under autograd ``moe_ffn`` and ``grouped_ffn`` are
+``torch.autograd.Function``s (``MoeFFN``, ``GroupedFFN``) whose
+backwards are ``moe_ffn_bwd`` and ``grouped_ffn_bwd``.
 """
 from __future__ import annotations
 
@@ -74,13 +76,27 @@ def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     most three kernel launches and no other device op, and no host sync.
     Checking the bound on the device would cost a host sync per layer;
     the tests hold every policy to it instead.
+
+    When autograd records (grad enabled and x, a weight or combine
+    requires grad) the call goes through ``MoeFFN``, whose backward is
+    ``moe_ffn_bwd``: the kernel on the card, the plain gradient on the
+    CPU.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, w3, w2, combine)):
+        return MoeFFN.apply(x, w1, w3, w2, combine, active, max_active)
+    return _moe_ffn(x, w1, w3, w2, combine, active, max_active=max_active)
+
+
+def _moe_ffn(x, w1, w3, w2, combine, active, *,
+             max_active: int) -> torch.Tensor:
+    """moe_ffn's forward: the plain version on the CPU, the kernel on the
+    card."""
     if x.device.type in build.PLAIN_DEVICES:
         return moe_ffn_plain(x, w1, w3, w2, combine, active)
     _require(x.device.type == "cuda", f"moe_ffn: no kernel for {x.device}")
     T, d = x.shape
     E, _, f = w1.shape
-    build.refuse_grad("moe_ffn", x, w1, w3, w2, combine)
     _require(1 <= T <= MAX_TOKENS, f"moe_ffn: T={T} outside 1..{MAX_TOKENS}")
     _require(d % 8 == 0 and f % 8 == 0,
              f"moe_ffn: d={d} and f={f} must be multiples of 8")
@@ -117,6 +133,148 @@ def moe_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
 
 
 moe_ffn.launches = 0
+
+
+class MoeFFN(torch.autograd.Function):
+    """moe_ffn with its gradient: the forward is the kernel (or its plain
+    version on the CPU) as it is; the backward recomputes the SwiGLU's
+    pre-activations from the saved tokens and weights, so the forward
+    stores nothing extra. x, the weights and combine get gradients;
+    active and max_active none."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w3, w2, combine, active, max_active):
+        ctx.save_for_backward(x, w1, w3, w2, combine, active)
+        ctx.max_active = max_active
+        return _moe_ffn(x, w1, w3, w2, combine, active,
+                        max_active=max_active)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w3, w2, combine, active = ctx.saved_tensors
+        dx, dw1, dw3, dw2, dcombine = moe_ffn_bwd(
+            x, w1, w3, w2, combine, active, dy.to(x.dtype).contiguous(),
+            max_active=ctx.max_active)
+        return dx, dw1, dw3, dw2, dcombine.to(combine.dtype), None, None
+
+
+def _slot_mask(active: torch.Tensor, max_active: int) -> torch.Tensor:
+    """(E,) bool: the forward kernel's slots, the first max_active active
+    experts in index order."""
+    return active & (torch.cumsum(active.long(), 0) <= max_active)
+
+
+def moe_ffn_bwd_plain(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                      w2: torch.Tensor, combine: torch.Tensor,
+                      active: torch.Tensor, dy: torch.Tensor, *,
+                      max_active: int):
+    """The gradient of moe_ffn for the output gradient dy (T, d), written
+    out in f32 for every expert: with A = x W1[e], B = x W3[e],
+    s = sigmoid(A), H = silu(A) B, c = combine[:, e] and G = dy W2[e]^T,
+
+      dA = c G B s (1 + A (1 - s)),  dB = c G silu(A),
+      dx = sum_e dA W1[e]^T + dB W3[e]^T,
+      dW1[e] = x^T dA,  dW3[e] = x^T dB,  dW2[e] = (c H)^T dy,
+      dcombine[t, e] = sum_f G H = <dy_t, H_e(t) W2[e]>,
+
+    with every expert outside the slots (the first max_active active
+    experts, the ones the kernel runs) masked to zero weight gradients
+    and a zero dcombine column. So a column of combine that is all zero
+    (an inactive expert) gets 0, where the JAX package's vjp of its
+    dense path gives <dy, y_e>: within the slots the kernel can only give
+    that for the experts it runs. The router's gradient does not change:
+    combine's columns come from route()'s weights, and a pick of weight
+    0 (restricted_topk outside the selected set) has its weight set by
+    ``torch.where``, which passes its gradient to nothing.
+
+    Returns (dx, dw1, dw3, dw2, dcombine) in the dtypes of x, the
+    weights and combine."""
+    slot = _slot_mask(active, max_active)
+    xf, dyf = x.float(), dy.float()
+    w1f, w3f, w2f = w1.float(), w3.float(), w2.float()
+    c = torch.where(slot[:, None], combine.T.float(), 0.0)[..., None]
+    a = torch.einsum("td,edf->etf", xf, w1f)
+    b = torch.einsum("td,edf->etf", xf, w3f)
+    g = torch.einsum("td,efd->etf", dyf, w2f)
+    s = torch.sigmoid(a)
+    silu = a * s
+    h = silu * b
+    da = c * g * b * s * (1 + a * (1 - s))
+    db = c * g * silu
+    dx = torch.einsum("etf,edf->td", da, w1f) + \
+        torch.einsum("etf,edf->td", db, w3f)
+    dw1 = torch.einsum("td,etf->edf", xf, da)
+    dw3 = torch.einsum("td,etf->edf", xf, db)
+    dw2 = torch.einsum("etf,td->efd", c * h, dyf)
+    dcombine = torch.where(slot[None, :], (g * h).sum(-1).T, 0.0)
+    return (dx.to(x.dtype), dw1.to(w1.dtype), dw3.to(w3.dtype),
+            dw2.to(w2.dtype), dcombine.to(combine.dtype))
+
+
+def moe_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
+                w2: torch.Tensor, combine: torch.Tensor,
+                active: torch.Tensor, dy: torch.Tensor, *,
+                max_active: int):
+    """moe_ffn's gradient for the output gradient dy (T, d): returns (dx,
+    dw1, dw3, dw2, dcombine), dcombine (T, E) in f32. On the card three
+    CUDA kernels (csrc/moe_ffn_bwd.cu): A, B and G per (32 f columns,
+    slot) over all of d; the weight gradients' tiles and dx's parts per
+    (64 f columns, 128 rows of d, expert), the experts outside the slots
+    writing zeros; dx and dcombine summed in a fixed order. f32 scratch,
+    no atomics, so two calls give the same bits. The forward's checks
+    hold: T <= MAX_TOKENS, d and f multiples of 8, x, dy and the weights
+    of one dtype and 16-byte aligned; combine is taken with a row
+    stride, without a copy. On the CPU the plain version."""
+    if x.device.type in build.PLAIN_DEVICES:
+        return moe_ffn_bwd_plain(x, w1, w3, w2, combine, active, dy,
+                                 max_active=max_active)
+    _require(x.device.type == "cuda",
+             f"moe_ffn_bwd: no kernel for {x.device}")
+    T, d = x.shape
+    E, _, f = w1.shape
+    _require(1 <= T <= MAX_TOKENS,
+             f"moe_ffn_bwd: T={T} outside 1..{MAX_TOKENS}")
+    _require(d % 8 == 0 and f % 8 == 0,
+             f"moe_ffn_bwd: d={d} and f={f} must be multiples of 8")
+    _require(w1.shape == w3.shape == (E, d, f) and w2.shape == (E, f, d),
+             "moe_ffn_bwd: weight shapes")
+    _require(combine.shape == (T, E) and active.shape == (E,)
+             and dy.shape == (T, d),
+             "moe_ffn_bwd: combine / active / dy shapes")
+    _require(x.dtype == dy.dtype == w1.dtype == w3.dtype == w2.dtype,
+             "moe_ffn_bwd: x, dy and weights must share a dtype")
+    _require(active.dtype == torch.bool, "moe_ffn_bwd: active must be bool")
+    cf = combine.float()
+    if cf.stride(1) != 1:   # a row stride is taken, no copy
+        cf = cf.contiguous()
+    _require(cf.device == x.device, f"moe_ffn_bwd: combine on "
+             f"{cf.device}, want {x.device}")
+    _check_cuda("moe_ffn_bwd", x.device, x=x, w1=w1, w3=w3, w2=w2, dy=dy,
+                active=active)
+    for k, t in dict(x=x, w1=w1, w3=w3, w2=w2, dy=dy).items():
+        _require(t.data_ptr() % 16 == 0,
+                 f"moe_ffn_bwd: {k} not 16-byte aligned")
+    slots = max(1, min(int(max_active), E))
+    nt1, nt2 = -(-f // 32), -(-f // 64)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    s_act = torch.empty((slots, 3, T, f), **f32)
+    p_comb = torch.empty((slots, nt1, T), **f32)
+    p_dx = torch.empty((slots, nt2, T, d), **f32)
+    dx = torch.empty_like(x)
+    dw1, dw3, dw2 = (torch.empty_like(w) for w in (w1, w3, w2))
+    dcombine = torch.empty((T, E), **f32)
+    build.check(build.lib().moe_ffn_bwd(
+        x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
+        cf.data_ptr(), cf.stride(0), active.data_ptr(), dy.data_ptr(),
+        s_act.data_ptr(), p_comb.data_ptr(), p_dx.data_ptr(), dx.data_ptr(),
+        dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), dcombine.data_ptr(),
+        T, d, f, E, slots, nt1, nt2, build.dtype_code(x),
+        build.stream_ptr(x.device)), "moe_ffn_bwd")
+    moe_ffn_bwd.launches += 1
+    return dx, dw1, dw3, dw2, dcombine
+
+
+moe_ffn_bwd.launches = 0
 
 
 # -------------------------------------------------------- grouped_ffn ---

@@ -5,11 +5,16 @@ metrics) step: forward and backward of ``models.model.loss_fn`` through
 ``torch.autograd.grad``, global-norm clipping and AdamW. On the card the
 sorted expert FFN runs the ``grouped_ffn`` kernel forward and its
 hand-written gradient backward, and an SSM layer (mamba2, zamba2) the
-``ssd_scan`` kernel forward and ``ssd_scan_bwd`` backward; a kernel
-without a backward (moe_ffn at T <= 32, decode_attention) refuses to run
-under autograd. No ``torch.compile``.
+``ssd_scan`` kernel forward and ``ssd_scan_bwd`` backward, and a
+decode-sized drop-free batch (T <= 32, the dense expert path) the
+``moe_ffn`` kernel forward and ``moe_ffn_bwd`` backward;
+decode_attention, which has no backward, refuses to run under autograd.
+No ``torch.compile``.
 
-The CLI trains on the synthetic Markov data (``repro_torch.data``):
+The CLI trains on the synthetic Markov data (``repro_torch.data``), in
+(B, S, K) frames for the audio family, and after a seeded prefix
+(``cli_prefix``) for a config with ``prefix_len``, as the reference's
+CLI does:
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch granite-moe-1b-a400m --reduced --steps 50 --batch 8 \\
@@ -112,6 +117,22 @@ def make_train_step(cfg: ArchConfig, *, policy: XSharePolicy = OFF,
     return train_step
 
 
+def cli_prefix(cfg: ArchConfig, batch: int, seed: int,
+               params: Dict) -> Optional[torch.Tensor]:
+    """The CLI's prefix embeddings when ``cfg.prefix_len`` is set: one
+    (batch, prefix_len, d_model) N(0, 1) draw from a torch.Generator
+    seeded with ``seed``, on the params' device and in their dtype, given
+    to every step (the reference draws its prefix once with
+    ``jax.random.normal``, whose numbers a torch generator cannot give).
+    None otherwise."""
+    if not cfg.prefix_len:
+        return None
+    emb = params["embed"]
+    g = torch.Generator(device=emb.device).manual_seed(seed)
+    return torch.randn((batch, cfg.prefix_len, cfg.d_model), generator=g,
+                       device=emb.device).to(emb.dtype)
+
+
 def main(argv: Optional[list] = None) -> None:
     from repro_torch.bridge import init_params
     from repro_torch.configs.registry import get_config
@@ -141,11 +162,14 @@ def main(argv: Optional[list] = None) -> None:
                                                       args.steps),
                               remat=False)
     stream = batches(SyntheticLM(cfg.vocab_size, name=args.arch),
-                     batch=args.batch, seq_len=args.seq, seed=args.seed)
+                     batch=args.batch, seq_len=args.seq, seed=args.seed,
+                     num_codebooks=(cfg.num_codebooks
+                                    if cfg.family == "audio" else 1))
+    prefix = cli_prefix(cfg, args.batch, args.seed, params)
 
     t0 = time.perf_counter()
     for step in range(args.steps):
-        params, opt, m = step_fn(params, opt, next(stream))
+        params, opt, m = step_fn(params, opt, next(stream), prefix)
         if step % max(1, args.steps // 10) == 0 or step == args.steps - 1:
             print(f"step {step:4d} loss {float(m['loss']):.4f} "
                   f"gnorm {float(m['grad_norm']):.3f}", flush=True)

@@ -1238,23 +1238,16 @@ def test_grouped_ffn_autograd_runs_the_backward_kernel(cuda):
 
 
 def test_kernels_without_a_backward_refuse_gradients(cuda):
-    """moe_ffn and decode_attention (both entry points) raise on the card
-    when autograd would record them; under no_grad, and on the CPU, they
-    run. (ssd_scan has its gradient kernel: SsdScan, tested above.)"""
+    """decode_attention (both entry points) raises on the card when
+    autograd would record it; under no_grad, and on the CPU, it runs.
+    (ssd_scan, grouped_ffn and moe_ffn have their gradient kernels:
+    SsdScan, GroupedFFN, MoeFFN, tested above.)"""
     from repro_torch import kernels as K
     g = torch.Generator().manual_seed(3)
-    x = rand(g, (4, 64), torch.float32).to(cuda).requires_grad_(True)
-    w1, w3 = (rand(g, (2, 64, 64), torch.float32, 0.1).to(cuda)
-              for _ in range(2))
-    w2 = rand(g, (2, 64, 64), torch.float32, 0.1).to(cuda)
-    comb = torch.full((4, 2), 0.5, device=cuda)
-    act = torch.ones(2, dtype=torch.bool, device=cuda)
     q = rand(g, (2, 4, 32), torch.float32).to(cuda).requires_grad_(True)
     kv = rand(g, (2, 16, 2, 32), torch.float32).to(cuda)
     lens = torch.full((2,), 8, dtype=torch.int32, device=cuda)
     calls = {
-        "moe_ffn": lambda: K.moe_ffn(x, w1, w3, w2, comb, act,
-                                     max_active=2),
         "decode_attention": lambda: K.decode_attention(q, kv, kv, lens),
         "decode_attention ": lambda: K.decode_attention_cached(
             q[:, None], kv, kv, lens),
@@ -1265,10 +1258,110 @@ def test_kernels_without_a_backward_refuse_gradients(cuda):
             call()
         with torch.no_grad():
             call()
-    out = K.moe_ffn_plain(x.detach().cpu().requires_grad_(True),
-                          w1.cpu(), w3.cpu(), w2.cpu(), comb.cpu(),
-                          act.cpu())
+    out = K.decode_attention_plain(q.detach().cpu().requires_grad_(True),
+                                   kv.cpu(), kv.cpu(), lens.cpu())
     assert out.grad_fn is not None
+
+
+def _moe_bwd_case(g, dev, dtype, T, d, E, f, k, policy):
+    """moe_ffn_bwd's arguments for T tokens routed top-k under policy
+    ("off", or "batch" at k0 1 and m_l E / 4) by route(), which hands
+    combine over as a column slice, a random output gradient, and the
+    policy's max_active."""
+    from repro_torch.configs.base import MoEConfig, XSharePolicy
+    from repro_torch.models.moe import OFF, policy_max_active, route
+    pol = OFF if policy == "off" else XSharePolicy(mode="batch", k0=1,
+                                                   m_l=E // 4)
+    x = rand(g, (T, d), dtype).to(dev)
+    w1, w3 = (rand(g, (E, d, f), dtype, 0.05).to(dev) for _ in range(2))
+    w2 = rand(g, (E, f, d), dtype, 0.05).to(dev)
+    wg = rand(g, (d, E), torch.float32, 0.3).to(dev)
+    dy = rand(g, (T, d), dtype).to(dev)
+    moe = MoEConfig(num_experts=E, top_k=k, d_ff_expert=f)
+    _, _, combine, _ = route({"wg": wg}, x, moe, pol)
+    active = (combine != 0).any(0)
+    return ((x, w1, w3, w2, combine, active, dy),
+            policy_max_active(pol, T, E))
+
+
+@pytest.mark.parametrize("policy", ["off", "batch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,d,E,f,k", [(5, 64, 8, 48, 2),
+                                       (32, 72, 12, 200, 3),
+                                       (8, 1024, 32, 512, 8)],
+                         ids=["small", "T32-ragged", "granite-decode"])
+def test_moe_ffn_bwd_kernel(cuda, dtype, policy, T, d, E, f, k):
+    """moe_ffn's backward kernel against its plain version: every
+    gradient (dx, dw1, dw3, dw2, dcombine) within TOL of its largest
+    magnitude, exact zeros for the experts outside the slots, two calls
+    bit-equal, one launch counted and three CUDA kernels a call. d 72,
+    f 200: multiples of 8, not of the kernel's 16- / 32-row stages or
+    its 32- / 64-column and 128-row tiles."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(T + E)
+    args, ma = _moe_bwd_case(g, cuda, dtype, T, d, E, f, k, policy)
+    active = args[5]
+    assert int(active.sum()) <= ma
+    before = K.moe_ffn_bwd.launches
+    out = K.moe_ffn_bwd(*args, max_active=ma)
+    assert K.moe_ffn_bwd.launches == before + 1
+    ref = K.moe_ffn_bwd_plain(*args, max_active=ma)
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and o.shape == r.shape
+        _rel_close(o, r, TOL[dtype])
+    off = ~active
+    if bool(off.any()):
+        for t in out[1:4]:
+            assert float(t[off].abs().max()) == 0.0
+        assert float(out[4][:, off].abs().max()) == 0.0
+    again = K.moe_ffn_bwd(*args, max_active=ma)
+    for o, a in zip(out, again):
+        assert torch.equal(o, a)
+    n, per_kernel = _chip_smoke().cuda_kernels_of(
+        lambda: K.moe_ffn_bwd(*args, max_active=ma))
+    assert n == 3, per_kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_bwd_kernel_runs_only_the_slots(cuda, dtype):
+    """With max_active below the active count the kernel, as the forward,
+    runs the first max_active active experts: the gradient equals the
+    plain version's, which masks the same slots, and the active experts
+    past them get exact zeros."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(7)
+    x, w1, w3, w2, combine, active = _moe_case(
+        g, cuda, dtype, 6, 64, 8, 48, (0, 2, 3, 5, 6))
+    dy = rand(g, (6, 64), dtype).to(cuda)
+    args = (x, w1, w3, w2, combine, active, dy)
+    out = K.moe_ffn_bwd(*args, max_active=3)
+    ref = K.moe_ffn_bwd_plain(*args, max_active=3)
+    for o, r in zip(out, ref):
+        _rel_close(o, r, TOL[dtype])
+    for t in out[1:4]:
+        assert float(t[5:].abs().max()) == 0.0 and \
+            float(t[3].abs().max()) > 0.0
+    assert float(out[4][:, 5:].abs().max()) == 0.0
+
+
+def test_moe_ffn_autograd_equals_moe_ffn_bwd(cuda):
+    """Under torch.autograd.grad moe_ffn is MoeFFN: one forward and one
+    backward launch, and the gradient of x, the weights and combine
+    bit-equal to a direct moe_ffn_bwd call."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(5)
+    (x, w1, w3, w2, comb, active, dy), ma = _moe_bwd_case(
+        g, cuda, torch.float32, 8, 64, 8, 48, 2, "off")
+    leaves = [t.clone().requires_grad_(True) for t in (x, w1, w3, w2, comb)]
+    before = (K.moe_ffn.launches, K.moe_ffn_bwd.launches)
+    y = K.moe_ffn(*leaves, active, max_active=ma)
+    assert type(y.grad_fn).__name__ == "MoeFFNBackward"
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (K.moe_ffn.launches, K.moe_ffn_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    want = K.moe_ffn_bwd(x, w1, w3, w2, comb, active, dy, max_active=ma)
+    for g_, w in zip(got, want):
+        assert torch.equal(g_, w)
 
 
 @pytest.mark.parametrize("T", [1, 4])
@@ -1283,11 +1376,16 @@ def test_decode_attention_head_dim_16(cuda, T):
     check(out, K.decode_attention_cached_plain(*args), torch.float32)
 
 
-def test_train_step_on_the_card_equals_the_cpu(cuda):
-    """One make_train_step of a 2-layer MoE (4 x 24 tokens: the sorted
-    dispatch, so grouped_ffn and its backward kernel) on the card and on
-    the CPU from the same params: the loss within 2e-5, every updated
-    leaf within 1e-4 of its largest magnitude."""
+@pytest.mark.parametrize("batch,seq,cf,bwd", [
+    (4, 24, 1.25, "grouped_ffn_bwd"), (4, 8, 4.0, "moe_ffn_bwd")],
+    ids=["sorted", "dense"])
+def test_train_step_on_the_card_equals_the_cpu(cuda, batch, seq, cf, bwd):
+    """One make_train_step of a 2-layer MoE on the card and on the CPU
+    from the same params: 4 x 24 tokens take the sorted dispatch
+    (grouped_ffn and its backward kernel), 4 x 8 at capacity_factor 4
+    the dense path (moe_ffn and moe_ffn_bwd); the loss within 2e-5,
+    every updated leaf within 1e-4 of its largest magnitude, the
+    backward kernel launched once per layer."""
     from repro_torch import kernels as K
     from repro_torch.bridge import flatten, init_params
     from repro_torch.configs.base import ArchConfig, AttnConfig, MoEConfig
@@ -1300,15 +1398,15 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
                                      head_dim=16),
                      moe=MoEConfig(num_experts=4, top_k=2, d_ff_expert=64))
     params = init_params(cfg, seed=0, device="cpu")
-    toks = np.random.default_rng(0).integers(0, 128, (4, 24))
-    step = make_train_step(cfg)
+    toks = np.random.default_rng(0).integers(0, 128, (batch, seq))
+    step = make_train_step(cfg, capacity_factor=cf)
     outs = {}
     for dev in ("cpu", cuda):
         p = params_to(params, dev)
-        before = K.grouped_ffn_bwd.launches
+        before = K.KERNELS[bwd].launches
         outs[str(dev)] = step(p, adamw_init(p), toks)
         if dev is cuda:   # one backward per MoE layer
-            assert K.grouped_ffn_bwd.launches - before == cfg.num_layers
+            assert K.KERNELS[bwd].launches - before == cfg.num_layers
     (pc, _, mc), (pg, _, mg) = outs["cpu"], outs[str(cuda)]
     assert abs(float(mc["loss"]) - float(mg["loss"])) <= 2e-5
     for key, want in flatten(pc).items():

@@ -342,6 +342,8 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
     w1, w3, w2 = [torch.tensor(a) for a in ffn_weights(rng, 2, 16, 32)]
     K.moe_ffn(x, w1, w3, w2, torch.ones((4, 2)),
               torch.ones(2, dtype=torch.bool), max_active=2)
+    K.moe_ffn_bwd(x, w1, w3, w2, torch.ones((4, 2)),
+                  torch.ones(2, dtype=torch.bool), x, max_active=2)
     K.grouped_ffn(x, w1, w3, w2, torch.zeros(1, dtype=torch.int32),
                   torch.ones(1, dtype=torch.int32), block_t=4)
     K.grouped_ffn_bwd(x, w1, w3, w2, torch.zeros(1, dtype=torch.int32),
@@ -356,7 +358,8 @@ def test_cpu_tensors_never_reach_the_cuda_library(monkeypatch):
                    chunk=4)
     assert K.launch_counts() == {"grouped_ffn": 0, "moe_ffn": 0,
                                  "decode_attention": 0, "ssd_scan": 0,
-                                 "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0}
+                                 "grouped_ffn_bwd": 0, "ssd_scan_bwd": 0,
+                                 "moe_ffn_bwd": 0}
 
 
 class ElsewhereTensor:
@@ -402,6 +405,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(ValueError):
         K.moe_ffn(far, w, w, w.transpose(1, 2), torch.ones((4, 2)),
                   torch.ones(2, dtype=torch.bool), max_active=2)
+    with pytest.raises(ValueError):
+        K.moe_ffn_bwd(far, w, w, w.transpose(1, 2), torch.ones((4, 2)),
+                      torch.ones(2, dtype=torch.bool), far, max_active=2)
     with pytest.raises(ValueError):
         K.grouped_ffn(far, w, w, w.transpose(1, 2),
                       torch.zeros(1, dtype=torch.int32),

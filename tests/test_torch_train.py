@@ -551,6 +551,63 @@ def test_cli_checkpoint_restores_in_the_jax_package(tmp_path, capsys):
     assert abs(got - want) <= LOSS_TOL
 
 
+# (arch, batch, seq): the audio family's K-codebook frames and the VLM's
+# prefix (musicgen-large's reduced config has a prefix_len too), and
+# granite-moe at 1 x 4 tokens, whose MoE layers take the dense path
+CLI_RUNS = [("musicgen-large", 2, 16), ("paligemma-3b", 2, 16),
+            ("granite-moe-1b-a400m", 1, 4)]
+
+
+@pytest.mark.parametrize("arch,batch,seq", CLI_RUNS,
+                         ids=[a for a, _, _ in CLI_RUNS])
+def test_cli_trains_on_the_references_inputs(arch, batch, seq, capsys,
+                                             monkeypatch):
+    """python -m repro_torch.launch.train --reduced --steps 1 on the CPU:
+    its printed loss equals make_train_step's (remat off, as in the CLI)
+    on the same batch (K codebook frames, (B, S, K), for the audio
+    family, as the reference's CLI streams) and the same prefix, a
+    (batch, prefix_len, d_model) N(0, 1) draw of a torch.Generator
+    seeded with --seed, drawn here on its own, for a config with
+    prefix_len. The MoE model at 1 x 4 tokens runs moe_ffn's gradient
+    once per layer and grouped_ffn never; the dense families neither."""
+    import sys
+    from repro_torch.launch import train
+    km = sys.modules["repro_torch.kernels.moe_ffn"]
+    calls = {"moe_ffn_bwd": 0, "grouped_ffn": 0}
+
+    def counting(key, fn):
+        def wrapped(*a, **kw):
+            calls[key] += 1
+            return fn(*a, **kw)
+        return wrapped
+    monkeypatch.setattr(km, "moe_ffn_bwd",
+                        counting("moe_ffn_bwd", km.moe_ffn_bwd))
+    monkeypatch.setattr(km, "_grouped_ffn",
+                        counting("grouped_ffn", km._grouped_ffn))
+    train.main(["--arch", arch, "--reduced", "--steps", "1", "--batch",
+                str(batch), "--seq", str(seq), "--seed", "3", "--device",
+                "cpu"])
+    printed = next(ln for ln in capsys.readouterr().out.splitlines()
+                   if ln.startswith("step")).split()[3]
+    cli_calls = dict(calls)
+    tc = ARCHS[arch].reduced()
+    books = tc.num_codebooks if tc.family == "audio" else 1
+    toks = next(TDATA.batches(TDATA.SyntheticLM(tc.vocab_size, name=arch),
+                              batch=batch, seq_len=seq, seed=3,
+                              num_codebooks=books))
+    assert toks.shape == (batch, seq) + ((books,) if books > 1 else ())
+    prefix = None
+    if tc.prefix_len:
+        prefix = torch.randn((batch, tc.prefix_len, tc.d_model),
+                             generator=torch.Generator().manual_seed(3))
+    params = bridge.init_params(tc, seed=3, device="cpu")
+    _, _, m = make_train_step(tc, remat=False)(
+        params, TOPT.adamw_init(params), toks, prefix)
+    assert printed == f"{float(m['loss']):.4f}"
+    layers = tc.num_layers if tc.family == "moe" else 0
+    assert cli_calls == {"moe_ffn_bwd": layers, "grouped_ffn": 0}
+
+
 def test_prefix_embeds_and_unported_train_inputs_raise(models):
     """A train step whose batch is not a multiple of accum_steps raises
     ValueError, with prefix embeddings too (they are split with the
