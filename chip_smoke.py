@@ -334,9 +334,8 @@ SSD_BWD_KERNELS = ("ssd_bwd_chunk_state_kernel", "ssd_bwd_state_pass_kernel",
 # magnitude: the scan's f32 bar (dcum's row and column sums cancel), and
 # one rounding of dx, dB, dC to bf16 on either side
 SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-# moe_ffn_bwd's three passes (csrc/moe_ffn_bwd.cu)
-MOE_BWD_KERNELS = ("moe_bwd_act_kernel", "moe_bwd_grad_kernel",
-                   "moe_bwd_reduce_kernel")
+# moe_ffn_bwd's two passes (csrc/moe_ffn_bwd.cu)
+MOE_BWD_KERNELS = ("moe_bwd_strip_kernel", "moe_bwd_reduce_kernel")
 # the dense path's training phases: capacity_factor 4 keeps every token of
 # a 32-token MoE layer (granite's top-8 of 32 experts), so T <= 32 and
 # expert_ffn takes moe_ffn
@@ -1109,13 +1108,12 @@ def grouped_mm_yardstick(plan, xs, w1, w3, w2):
 
 def check_kernel_counts(cases):
     """decode_attention's and grouped_ffn's design: at most 2 CUDA
-    kernels per call (split + merge; up + down); grouped_ffn_bwd's and
-    moe_ffn_bwd's at most 3 (dA / dB / H, dxs, the weight gradients; A,
-    B and G, the weight gradients and dx's parts, the sums);
-    ssd_scan_bwd's at most 5 (chunk states, state pass, chunk tiles,
-    dcum, group sums)."""
+    kernels per call (split + merge; up + down); moe_ffn_bwd's too (the
+    clusters' strips, the sums); grouped_ffn_bwd's at most 3 (dA / dB /
+    H, dxs, the weight gradients); ssd_scan_bwd's at most 5 (chunk
+    states, state pass, chunk tiles, dcum, group sums)."""
     for name, most in (("decode_attention", 2), ("grouped_ffn", 2),
-                       ("grouped_ffn_bwd", 3), ("moe_ffn_bwd", 3),
+                       ("grouped_ffn_bwd", 3), ("moe_ffn_bwd", 2),
                        ("ssd_scan_bwd", 5)):
         for c in cases.get(name, ()):
             if not 1 <= c["kernels_per_call"] <= most:
@@ -3771,13 +3769,15 @@ def grouped_bwd_cases(archs):
     return out
 
 
-def moe_bwd_cases(archs):
+def moe_bwd_cases(archs, n_kernels=len(MOE_BWD_KERNELS)):
     """moe_ffn_bwd against moe_ffn_bwd_plain at granite-moe's decode shape
     (8 tokens, d 1024, f 512, 32 experts top-8) and at its small
     draft's (d 128, 4 experts top-2 of width 128), f32 and bf16, each
-    under policy off and batch (k0 1, m_l 8); route() gives combine as
-    the column slice it hands moe_ffn. Own generator, last in the
-    phase."""
+    under policy off and batch (k0 1, m_l 8); then at the dense train
+    step's shape (`train dense`: 4 x 8 = 32 tokens at granite's widths,
+    policy off), f32 and bf16. route() gives combine as the column slice
+    it hands moe_ffn; ``n_kernels`` goes to each moe_bwd_case. Own
+    generator, last in the phase."""
     from repro_torch.configs.base import XSharePolicy
     from repro_torch.models.moe import OFF
 
@@ -3801,19 +3801,32 @@ def moe_bwd_cases(archs):
             dy = randn(8, d, scale=0.01, dtype=dtype)
             for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)):
                 out.append(moe_bwd_case(label, x32.to(dtype), wg, w1, w3,
-                                        w2, dy, m, pol, dtype))
+                                        w2, dy, m, pol, dtype, n_kernels))
             del w1, w3, w2
+    d, m = cfg.d_model, cfg.moe
+    E, f = m.num_experts, m.d_ff_expert
+    wg = randn(d, E, scale=0.02)
+    x32 = randn(32, d)
+    for dtype in (torch.float32, torch.bfloat16):
+        w1, w3 = (randn(E, d, f, scale=0.02, dtype=dtype) for _ in range(2))
+        w2 = randn(E, f, d, scale=0.02, dtype=dtype)
+        dy = randn(32, d, scale=0.01, dtype=dtype)
+        out.append(moe_bwd_case(f"{ARCH} train", x32.to(dtype), wg, w1, w3,
+                                w2, dy, m, OFF, dtype, n_kernels))
+        del w1, w3, w2
     return out
 
 
-def moe_bwd_case(label, xt, wg, w1, w3, w2, dy, mcfg, pol, dtype):
+def moe_bwd_case(label, xt, wg, w1, w3, w2, dy, mcfg, pol, dtype,
+                 n_kernels=len(MOE_BWD_KERNELS)):
     """One moe_ffn_bwd case: each gradient (dx, dw1, dw3, dw2, dcombine)
     within TOL of its largest magnitude, the weight gradients and
     combine columns of the experts outside the slots exactly zero, two
-    calls bit-equal, exactly 3 CUDA kernels a call; timed beside its
-    bound: the selected experts' weights, x, dy and combine read once,
-    dx, dcombine and all E experts' weight gradients written once, 16
-    operations per (token, expert) pair of nonzero weight and d f."""
+    calls bit-equal, exactly ``n_kernels`` CUDA kernels a call (None:
+    any number; their device us by pass in ``pass_us``); timed beside its bound: the selected experts'
+    weights, x, dy and combine read once, dx, dcombine and all E
+    experts' weight gradients written once, 16 operations per (token,
+    expert) pair of nonzero weight and d f."""
     from repro_torch.kernels import moe_ffn_bwd, moe_ffn_bwd_plain
     from repro_torch.models.moe import policy_max_active, route
 
@@ -3851,8 +3864,10 @@ def moe_bwd_case(label, xt, wg, w1, w3, w2, dy, mcfg, pol, dtype):
         rel_err=errs, tol=TOL[dtype], bit_equal=bit_equal,
         outside_slots_zero=zeros,
         ok=all(e <= TOL[dtype] for e in errs.values()) and bit_equal
-        and zeros and n_kern == 3,
+        and zeros and n_kernels in (None, n_kern),
         kernels_per_call=n_kern, kernel_device_us=kern_us,
+        pass_us={re.sub(r"_kernel.*", "", k.split("moe_bwd_")[-1]): v
+                 for k, v in kern_us.items()},
         ms=time_ms(kernel),
         plain_ms=time_ms(lambda: moe_ffn_bwd_plain(*args, max_active=ma),
                          iters=5),
@@ -3861,8 +3876,8 @@ def moe_bwd_case(label, xt, wg, w1, w3, w2, dy, mcfg, pol, dtype):
         f"max_active={ma}, errors / max |ref| {errs} (limit {TOL[dtype]}), "
         f"bit-equal {bit_equal}, outside the slots zero {zeros}; "
         f"{case['ms']:.4f} ms (bound {bms:.4f} by {by}), plain "
-        f"{case['plain_ms']:.3f} ms, {n_kern} CUDA kernels per call: "
-        f"{kern_us}")
+        f"{case['plain_ms']:.3f} ms, {n_kern} CUDA kernels per call, "
+        f"device us by pass {case['pass_us']}")
     return case
 
 

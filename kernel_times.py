@@ -71,7 +71,7 @@ def main() -> int:
         if hasattr(K, "ssd_scan_bwd"):
             cases["ssd_scan_bwd"] = chip_smoke.ssd_bwd_cases(ARCHS)
         if hasattr(K, "moe_ffn_bwd"):
-            cases["moe_ffn_bwd"] = chip_smoke.moe_bwd_cases(ARCHS)
+            cases["moe_ffn_bwd"] = chip_smoke.moe_bwd_cases(ARCHS, None)
     card = chip_smoke.gpu_name_power()
     for name, cs in cases.items():
         for c in cs:

@@ -37,7 +37,8 @@ SIGNATURES = {
     "grouped_ffn": [_P] * 8 + [_I] * 5 + [_P],
     "grouped_ffn_bwd": [_P] * 14 + [_I] * 6 + [_P],
     "moe_ffn": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 8 + [_P],
-    "moe_ffn_bwd": [_P] * 5 + [_I] + [_P] * 10 + [_I] * 8 + [_P],
+    "moe_ffn_bwd": [_P] * 5 + [_I] + [_P] * 9 + [_I] * 8 + [_P],
+    "moe_ffn_bwd_parts": [_I] * 5,
     "decode_attention": [_P] * 6 + [_I] * 12 + [ctypes.c_float, _I, _P],
     "decode_attention_step": [_I, _I],
     "ssd_scan": [_P] * 10 + [_I] * 8 + [_P],

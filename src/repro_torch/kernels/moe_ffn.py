@@ -211,20 +211,26 @@ def moe_ffn_bwd_plain(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
             dw2.to(w2.dtype), dcombine.to(combine.dtype))
 
 
+BWD_STRIP = 32   # f columns a cluster of moe_ffn_bwd's kernel takes at a time
+
+
 def moe_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
                 w2: torch.Tensor, combine: torch.Tensor,
                 active: torch.Tensor, dy: torch.Tensor, *,
                 max_active: int):
     """moe_ffn's gradient for the output gradient dy (T, d): returns (dx,
-    dw1, dw3, dw2, dcombine), dcombine (T, E) in f32. On the card three
-    CUDA kernels (csrc/moe_ffn_bwd.cu): A, B and G per (32 f columns,
-    slot) over all of d; the weight gradients' tiles and dx's parts per
-    (64 f columns, 128 rows of d, expert), the experts outside the slots
-    writing zeros; dx and dcombine summed in a fixed order. f32 scratch,
-    no atomics, so two calls give the same bits. The forward's checks
-    hold: T <= MAX_TOKENS, d and f multiples of 8, x, dy and the weights
-    of one dtype and 16-byte aligned; combine is taken with a row
-    stride, without a copy. On the CPU the plain version."""
+    dw1, dw3, dw2, dcombine), dcombine (T, E) in f32. On the card two
+    CUDA kernels (csrc/moe_ffn_bwd.cu): as many thread block clusters as
+    the card holds at once walk the (slot, 32-column f strip) items; a
+    cluster's blocks split d, hold their rows of an item's weights once,
+    sum A, B and G through distributed shared memory and write the
+    weight gradients, each cluster adding its items' dx to one part (the
+    experts outside the slots get zeros); then dx and dcombine summed in
+    a fixed order. f32 scratch, no atomics, so two calls give the same
+    bits. The forward's checks hold: T <= MAX_TOKENS, d and f multiples
+    of 8, x, dy and the weights of one dtype and 16-byte aligned;
+    combine is taken with a row stride, without a copy. On the CPU the
+    plain version."""
     if x.device.type in build.PLAIN_DEVICES:
         return moe_ffn_bwd_plain(x, w1, w3, w2, combine, active, dy,
                                  max_active=max_active)
@@ -255,20 +261,21 @@ def moe_ffn_bwd(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
         _require(t.data_ptr() % 16 == 0,
                  f"moe_ffn_bwd: {k} not 16-byte aligned")
     slots = max(1, min(int(max_active), E))
-    nt1, nt2 = -(-f // 32), -(-f // 64)
+    ns, code = -(-f // BWD_STRIP), build.dtype_code(x)
+    nparts = build.lib().moe_ffn_bwd_parts(T, d, f, slots, code)
+    _require(nparts >= 1, "moe_ffn_bwd: no cluster count from the runtime")
     f32 = dict(dtype=torch.float32, device=x.device)
-    s_act = torch.empty((slots, 3, T, f), **f32)
-    p_comb = torch.empty((slots, nt1, T), **f32)
-    p_dx = torch.empty((slots, nt2, T, d), **f32)
+    p_comb = torch.empty((slots, ns, T), **f32)
+    p_dx = torch.empty((nparts, T, d), **f32)
     dx = torch.empty_like(x)
     dw1, dw3, dw2 = (torch.empty_like(w) for w in (w1, w3, w2))
     dcombine = torch.empty((T, E), **f32)
     build.check(build.lib().moe_ffn_bwd(
         x.data_ptr(), w1.data_ptr(), w3.data_ptr(), w2.data_ptr(),
         cf.data_ptr(), cf.stride(0), active.data_ptr(), dy.data_ptr(),
-        s_act.data_ptr(), p_comb.data_ptr(), p_dx.data_ptr(), dx.data_ptr(),
+        p_comb.data_ptr(), p_dx.data_ptr(), dx.data_ptr(),
         dw1.data_ptr(), dw3.data_ptr(), dw2.data_ptr(), dcombine.data_ptr(),
-        T, d, f, E, slots, nt1, nt2, build.dtype_code(x),
+        T, d, f, E, slots, ns, nparts, code,
         build.stream_ptr(x.device)), "moe_ffn_bwd")
     moe_ffn_bwd.launches += 1
     return dx, dw1, dw3, dw2, dcombine

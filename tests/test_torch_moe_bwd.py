@@ -9,6 +9,16 @@ with k0 0 (whose picks outside the selected set have weight 0); a
 2-layer granite-moe loss gradient at 1 x 4 tokens (the dense path)
 against ``jax.grad``; and ``moe_ffn``'s routing through ``MoeFFN``.
 
+The kernel's precision plan is pinned here too: on the card it takes
+each of its eight products on mma.sync, in f32 as three TF32 products
+(3xTF32, csrc/common.cuh), in bf16 with dA and dB rounded to bf16 as
+operands and c H as the forward rounds it. At one expert, its operands
+split that way and summed in IEEE f32 stay within the card's gates of
+``jax.vjp``, where a single TF32 product does not; and dx's long chain
+of mma accumulations over 32 experts, each emulated as a round toward
+zero, the order of the kernel's items, clusters and sums, stays within
+the f32 gate with the split and misses it without.
+
 Inputs come from numpy seeds; weights cross by value. Tolerances, of each
 gradient's largest magnitude: 2e-5 in f32 and 2e-2 in bf16 (the repo's
 kernel tolerances), 1e-10 in float64, 1e-4 for the loss gradient
@@ -35,6 +45,8 @@ from repro_torch.configs import base as TB  # noqa: E402
 from repro_torch.configs.registry import ARCHS  # noqa: E402
 from repro_torch.launch.train import loss_and_grads  # noqa: E402
 from repro_torch.models import moe as TM  # noqa: E402
+
+from test_torch_ssd_bwd import tf32_einsum  # noqa: E402
 
 KM = sys.modules["repro_torch.kernels.moe_ffn"]   # the module, not the function
 
@@ -278,3 +290,140 @@ def test_moe_ffn_routes_through_moe_ffn_fn_only_under_autograd(device):
     assert y0.grad_fn is None and y1.grad_fn is None
     if device == "cpu":
         assert torch.equal(y0, y.detach()) and torch.equal(y1, y0)
+
+
+# --------------------------------------- the CUDA kernel's precision plan
+
+@pytest.mark.parametrize("split", [True, False], ids=["3xtf32", "1xtf32"])
+def test_tf32_split_holds_the_f32_gate_and_one_tf32_product_does_not(
+        monkeypatch, split):
+    """One expert at granite-moe's widths (d 1024, f 512) and the dense
+    train step's 32 tokens, f32: moe_ffn_bwd_plain with the operands of
+    each of its eight products (A, B, G; dx's two; dW1, dW3, dW2) split
+    as 3xTF32 (lo·hi + hi·lo + hi·hi) keeps every gradient within 2e-5
+    of its largest magnitude of jax.vjp of the dense path (the kernel's
+    f32 gate on the card); with a single TF32 product some gradient
+    misses it. The products' sums are IEEE f32 here, not the tensor
+    core's accumulation, and one expert is not the kernel's long sum
+    over 32: test_dx_chain_over_32_experts_... models those for dx."""
+    E = 1
+    arrs = ffn_inputs(27, 32, 1024, 512, E, ())
+    want = jax_vjp(arrs, jnp.float32, E)
+    x, w1, w3, w2, comb, dy = (torch.tensor(a, dtype=torch.float32)
+                               for a in arrs)
+    calls = []
+    monkeypatch.setattr(torch, "einsum",
+                        tf32_einsum(torch.einsum, split, calls))
+    got = K.moe_ffn_bwd_plain(x, w1, w3, w2, comb, torch.ones(E, dtype=bool),
+                              dy, max_active=E)
+    assert len(calls) == 8
+    errs = {n: rel_err(g, w) for n, g, w in zip(NAMES, got, want)}
+    if split:
+        assert max(errs.values()) <= TOL["f32"], errs
+    else:
+        assert max(errs.values()) > TOL["f32"], errs
+
+
+
+def rz_f32(v):
+    """float64 to the f32 value next to it toward zero, in float64."""
+    r = v.float()
+    return torch.where(r.double().abs() > v.abs(),
+                       torch.nextafter(r, torch.zeros_like(r)), r).double()
+
+
+def kernel_dx(da, db, w1, w3, split, rnd=rz_f32, clusters=30, fs=32):
+    """dx = sum_e dA W1[e]^T + dB W3[e]^T (f32 operands) summed as
+    csrc/moe_ffn_bwd.cu sums it at 32 tokens: the (slot, strip of ``fs``
+    columns) items slot-major, an even contiguous share per cluster (30
+    at granite's shape on the H100), each cluster's accumulator taking
+    an item's W1 then W3 product over its strip 8 columns at a time, as
+    lo·hi, hi·lo, hi·hi mma.sync m16n8k8 (``split``) or hi·hi alone,
+    each mma rounding its exact sum to f32 by ``rnd`` (toward zero by
+    default); then the clusters'
+    parts summed in f32 as the reduce kernel sums them (8 warps an
+    eighth each in order, then the eighths in order)."""
+    from test_torch_ssd_bwd import tf32
+
+    def parts(t):
+        hi = tf32(t.float()).double()
+        return hi, tf32((t - hi).float()).double()
+    (E, d, f), T = w1.shape, da.shape[1]
+    n = E * (f // fs)
+    acc = torch.zeros(clusters, T, d, dtype=torch.float64)
+    for c in range(clusters):
+        for it in range(c * n // clusters, (c + 1) * n // clusters):
+            e, s = divmod(it, f // fs)
+            for w, g in ((w1, da), (w3, db)):
+                for k in range(s * fs, (s + 1) * fs, 8):
+                    (wh, wl), (gh, gl) = (parts(w[e][:, k:k + 8].double()),
+                                          parts(g[e][:, k:k + 8].double()))
+                    for a, b in (((gh, wl), (gl, wh), (gh, wh)) if split
+                                 else ((gh, wh),)):
+                        acc[c] = rnd(acc[c] + a @ b.T)
+    eighths = [sum((acc[q].float() for q in range(
+        w * clusters // 8, (w + 1) * clusters // 8)),
+        torch.zeros(T, d)) for w in range(8)]
+    return sum(eighths, torch.zeros(T, d))
+
+
+def nearest_f32(v):
+    return v.float().double()
+
+
+# split, each mma's rounding, the limit of dx's error, whether it holds
+CHAIN = {"3xtf32": (True, rz_f32, TOL["f32"], True),
+         "1xtf32": (False, rz_f32, TOL["f32"], False),
+         "3xtf32-nearest": (True, nearest_f32, 2e-6, True)}
+
+
+@pytest.mark.parametrize("case", CHAIN)
+def test_dx_chain_over_32_experts_holds_the_f32_gate_with_the_split(case):
+    """All of granite-moe's 32 experts at d 1024, f 512 and the dense
+    train step's 32 tokens, f32: dx formed from the f32 dA and dB as the
+    kernel forms it (kernel_dx: its order of items, clusters and sums,
+    each mma rounding toward zero, a tensor core's f32 accumulation as
+    modelled here) is within 2e-5 of its largest magnitude of jax.vjp's
+    dx with the 3xTF32 split, and not with a single TF32 product. With
+    each mma rounding to nearest it is within 2e-6: the truncation, over
+    about 400 mma a cluster, is what lifts dx's error towards the gate."""
+    split, rnd, limit, holds = CHAIN[case]
+    E = 32
+    arrs = ffn_inputs(29, 32, 1024, 512, E, ())
+    want = jax_vjp(arrs, jnp.float32, E)[0]
+    x, w1, w3, w2, comb, dy = (torch.tensor(a, dtype=torch.float32)
+                               for a in arrs)
+    del arrs
+    a = torch.einsum("td,edf->etf", x, w1)
+    b = torch.einsum("td,edf->etf", x, w3)
+    g = torch.einsum("td,efd->etf", dy, w2)
+    s, c = torch.sigmoid(a), comb.T[..., None]
+    da, db = c * g * b * s * (1 + a * (1 - s)), c * g * a * s
+    err = rel_err(kernel_dx(da, db, w1, w3, split, rnd), want)
+    assert (err <= limit) == holds, err
+
+def test_bf16_roundings_of_the_kernel_stay_within_tol_of_jax_vjp():
+    """The same expert and tokens with bf16 x, dy and weights, emulating
+    the kernel's bf16 path: A, B and G in f32 from the bf16 operands
+    (exact products, f32 sums), dA and dB rounded to bf16 as the operands
+    of dW1, dW3 and dx, c H rounded to bf16 for dW2 (as the forward
+    rounds it), dcombine from H in f32, each gradient rounded to its
+    dtype: within 2e-2 of each gradient's largest magnitude of jax.vjp of
+    the dense path in bf16."""
+    E = 1
+    arrs = ffn_inputs(28, 32, 1024, 512, E, ())
+    want = jax_vjp(arrs, jnp.bfloat16, E)
+    x, w1, w3, w2, dy = (torch.tensor(a).to(torch.bfloat16).float()
+                         for a in (arrs[0], arrs[1], arrs[2], arrs[3],
+                                   arrs[5]))
+    c = torch.tensor(arrs[4], dtype=torch.float32)[:, 0, None]
+    bf = lambda t: t.to(torch.bfloat16).float()   # noqa: E731
+    a, b, g = x @ w1[0], x @ w3[0], dy @ w2[0].T
+    s = torch.sigmoid(a)
+    h = a * s * b
+    da, db = bf(c * g * b * s * (1 + a * (1 - s))), bf(c * g * a * s)
+    got = [(da @ w1[0].T + db @ w3[0].T), (x.T @ da)[None],
+           (x.T @ db)[None], (bf(c * h).T @ dy)[None], (g * h).sum(-1)[:, None]]
+    got = [t.to(torch.bfloat16) for t in got[:4]] + [got[4]]
+    for name, gt, w in zip(NAMES, got, want):
+        assert rel_err(gt, w) <= TOL["bf16"], (name, rel_err(gt, w))
