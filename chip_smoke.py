@@ -77,6 +77,16 @@ each prints its wall time):
                 within TOL of the plain version and EXACT_BF16 of f32
                 math on the dequantized cache, beside the bf16 instance
                 on that cache and a dequantize + SDPA yardstick;
+                the serving kernels at gpt-oss-120b-proxy's shapes (d =
+                f = 2880, 128 experts top-4): moe_ffn on a decode step's
+                8 tokens, policy off and batch (its time ratio gated as
+                granite's), grouped_ffn on the 8 x 128 prefill's plan
+                (block_t 16, the dispatch default there, and 128), an
+                8 x 5 verify pass and an 8-token decode step (block_t 8)
+                beside torch._grouped_mm,
+                decode_attention at 8 rows of 64 / 8 heads of 64 and at
+                llama3-8b's 32 / 8 of 128, cur_len 128-159 in a cache of
+                512, beside SDPA;
   3. parity     each full-width model cut to 2 layers in f32 (zamba2: one
                 shared-block application), prefill of 4 x 64 tokens
                 (granite-moe; paligemma-3b after 256 prefix embeddings;
@@ -87,7 +97,9 @@ each prints its wall time):
                 speculative decoding (spec_len 3, 16 new; the self-draft
                 and the target's params + 0.05 N(0, 1), which must be
                 rejected at least once): continuous == lockstep == plain
-                greedy on each device, CPU == GPU;
+                greedy on each device, CPU == GPU; gpt-oss-120b-proxy at
+                1 layer (its f32 weights take 17.5 GB) and llama3-8b at
+                2, 4 x 64 tokens, as above;
   4. main path  random weights from a seed, bf16, all layers, through
                 Engine.generate, twice: cold (the decode loops captured
                 as CUDA graphs on the way, serving/graphs.py) and warm
@@ -105,6 +117,23 @@ each prints its wall time):
                 h2o-danube-1.8b (24 layers, head dim 80, sliding window
                 4096), 4 requests of 4600 prompt tokens, 32 new, so its
                 rolling cache of 4608 wraps 8 tokens into decoding:
+                decode_attention once per layer per decode step;
+                gpt-oss-120b-proxy (after the ep phases) at its own
+                widths cut to 8 of its 36 layers (53.7 GB; all 36 take
+                233.6 GB), 8 x 128 prompts, 32 new, cache 512, the engine
+                at capacity_factor 32 (= E / k, so a decode step's 8
+                tokens take moe_ffn), policy off and batch (k0 1, m_l
+                8): grouped_ffn once per layer per prefill, moe_ffn and
+                decode_attention once per layer per decode step,
+                exactly; then policy off at the engine's default 8,
+                whose decode takes grouped_ffn (the same drop-free
+                function), grouped_ffn once per layer per prefill and
+                per decode step, exactly; batch activating fewer experts
+                per layer per decode step than off (a random router);
+                each replayed step beside launch/roofline.py's one-card
+                bound; then grouped_ffn's
+                bf16 check (phase 6) at 1 layer; llama3-8b (32 layers,
+                head dim 128), 8 x 128 prompts, 32 new, cache 512:
                 decode_attention once per layer per decode step;
      graphs     granite-moe at full width, bf16: one decode chunk (8
                 steps) and one speculative dispatch (4 rounds, small
@@ -271,7 +300,14 @@ each prints its wall time):
                 device ms and the backward's share, then the train CLI
                 (python -m repro_torch.launch.train --arch
                 granite-moe-1b-a400m --reduced --batch 1 --seq 4) in a
-                subprocess, which must exit 0.
+                subprocess, which must exit 0; (g), last: trained claims,
+                tests/test_system.py's 2-layer MoE (d 64, 16 experts
+                top-4) trained on the card for 60 steps of 8 x 64 tokens
+                (grouped_ffn and grouped_ffn_bwd once per layer per step,
+                exactly; the loss must fall), then the paper's five
+                claims held as that test states them, each claim's
+                moe_ffn (forwards of <= 32 tokens) and grouped_ffn
+                launches exact, the measured values printed.
 
 Prints a JSON line {"kernels": [...]}, the card's name and power limit,
 and last {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -318,6 +354,25 @@ VLM, AUDIO = "paligemma-3b", "musicgen-large"
 # the families phase's requests: paligemma's 256 image-patch embeddings
 # (its config's prefix_len), 128 prompt tokens (musicgen: frames), 32 new
 FAMILY_PREFIX, FAMILY_PROMPT, FAMILY_NEW = 256, 128, 32
+# the paper's evaluation model: 36 layers of 128 experts top-4 at d = f =
+# 2880 take 116.8 B parameters, 233.6 GB in bf16; 8 layers (3.21 B each,
+# plus 1.16 B of the two vocabulary matrices) take 53.7 GB of the card's
+# 80. Its CPU == GPU parity runs 1 layer in f32: 17.5 GB on the host and
+# on the card (2 layers would be 30 GB)
+GPT_OSS = "gpt-oss-120b-proxy"
+GPT_OSS_LAYERS, GPT_OSS_PARITY_LAYERS = 8, 1
+# its decode steps' 8 tokens at top-4 of 128 experts: the capacity
+# factor only picks the path, since both paths `auto` chooses between
+# drop nothing. At the engine's default 8 the einsum capacity is 4 < 8
+# tokens, so `auto` sends decode to the sorted path (grouped_ffn, tiles
+# of 8 rows); at 32 (= E / k, the least that covers every token, as
+# granite's E / k = 4 is covered by the default) it takes the dense
+# path, XShare's masked FFN (moe_ffn), that granite's default serves.
+# The phase serves both: off and batch at 32, off at the default 8. The
+# prefill's 1024 tokens take the sorted path either way
+GPT_OSS_CF, ENGINE_CF = 32.0, 8.0
+# the dense family at head dim 128
+LLAMA = "llama3-8b"
 SSD_KERNELS = ("chunk_state_kernel", "state_pass_kernel",
                "chunk_scan_kernel")   # the three passes of ssd_scan
 # grouped_ffn_bwd's three passes (tc: bf16 on the tensor cores; f32),
@@ -527,9 +582,7 @@ def kernel_cases(archs):
     all three of granite's kernels also at its verify pass's and at its
     small draft's shapes). Returns {kernel name: [case dicts]}."""
     from repro_torch import kernels as K
-    from repro_torch.configs.base import XSharePolicy
     from repro_torch.kernels import decode_attention, decode_attention_plain
-    from repro_torch.models.moe import OFF
 
     dev = CUDA
     g = torch.Generator(device=dev)
@@ -560,20 +613,8 @@ def kernel_cases(archs):
                 label, x, wg, w1, w3, w2, E, k, dtype, sz))
 
         # moe_ffn: one decode step's FFN, 8 tokens, policy off and batch
-        xt = randn(8, d, dtype=dtype)
-        moe_cases = [moe_case(xt, wg, w1, w3, w2, cfg.moe, pol, dtype)
-                     for pol in (OFF, XSharePolicy(mode="batch", k0=1,
-                                                   m_l=8))]
-        # XShare's saving at kernel level: time follows the selected set
-        off, bat = moe_cases
-        t_ratio, a_ratio = bat["ms"] / off["ms"], bat["active"] / off["active"]
-        log(f"moe_ffn {dtype}: time batch / off = {t_ratio:.3f}, active "
-            f"batch / off = {a_ratio:.3f} ({bat['active']} / "
-            f"{off['active']})")
-        for c in moe_cases:
-            c.update(time_ratio_batch_off=t_ratio,
-                     active_ratio_batch_off=a_ratio)
-        out["moe_ffn"] += moe_cases
+        out["moe_ffn"] += moe_policy_cases(randn(8, d, dtype=dtype), wg, w1,
+                                           w3, w2, cfg.moe, dtype)
 
         # decode_attention: 8 rows, each path's cache, ragged lengths and
         # the lengths its main path serves (prompt + up to 32 new)
@@ -978,6 +1019,26 @@ def verify_attention_case(a, kind, dtype, g, T=5, label=ARCH, B=8,
     return case
 
 
+def moe_policy_cases(xt, wg, w1, w3, w2, mcfg, dtype, label=ARCH):
+    """moe_case under policy off and batch (k0 1, m_l 8) on the same
+    tokens, each with the two policies' time and active-expert ratios:
+    XShare's saving at kernel level, time following the selected set
+    (check_moe_cases holds it)."""
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.moe import OFF
+
+    off, bat = (moe_case(xt, wg, w1, w3, w2, mcfg, pol, dtype, label=label)
+                for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)))
+    t_ratio, a_ratio = bat["ms"] / off["ms"], bat["active"] / off["active"]
+    log(f"moe_ffn {label} {dtype}: time batch / off = {t_ratio:.3f}, "
+        f"active batch / off = {a_ratio:.3f} ({bat['active']} / "
+        f"{off['active']})")
+    for c in (off, bat):
+        c.update(time_ratio_batch_off=t_ratio,
+                 active_ratio_batch_off=a_ratio)
+    return [off, bat]
+
+
 def moe_case(xt, wg, w1, w3, w2, mcfg, pol, dtype, label=ARCH):
     """moe_ffn against its plain version on one decode step's tokens xt
     routed under policy pol, timed beside its bound."""
@@ -1017,9 +1078,10 @@ def moe_case(xt, wg, w1, w3, w2, mcfg, pol, dtype, label=ARCH):
     return case
 
 
-def grouped_case(label, x, wg, w1, w3, w2, E, k, dtype, sz):
+def grouped_case(label, x, wg, w1, w3, w2, E, k, dtype, sz, block_t=None):
     """grouped_ffn against its plain version on the sorted dispatch of x
-    (top-k of E experts), timed beside its bound and, in bf16, the
+    (top-k of E experts; tiles of ``block_t`` rows, the dispatch's
+    default when None), timed beside its bound and, in bf16, the
     torch._grouped_mm yardstick."""
     from repro_torch.core.routing import topk_route
     from repro_torch.kernels import grouped_ffn, grouped_ffn_plain
@@ -1027,7 +1089,7 @@ def grouped_case(label, x, wg, w1, w3, w2, E, k, dtype, sz):
 
     d, f = w1.shape[1], w1.shape[2]
     idx, w = topk_route(x.float() @ wg, k)
-    plan = dispatch_plan(idx, w, E)
+    plan = dispatch_plan(idx, w, E, block_t=block_t)
     xs = gather_tokens(x, plan)
     args = (xs, w1, w3, w2, plan.tile_eid, plan.tile_valid)
     ker = grouped_ffn(*args, block_t=plan.block_t)
@@ -1062,6 +1124,55 @@ def grouped_case(label, x, wg, w1, w3, w2, E, k, dtype, sz):
         f"{n_kern} CUDA kernels per call: {kern_us}; torch._grouped_mm "
         f"yardstick (several calls): {case.get('grouped_mm_ms')}")
     return case
+
+
+def paper_model_cases(archs):
+    """The serving kernels at the shapes the gpt-oss-120b-proxy and
+    llama3-8b phases give them, f32 and bf16, each against its plain
+    version: moe_ffn on one decode step of 8 tokens at d 2880, f 2880,
+    128 experts top-4 with normalized gates, policy off and batch (k0 1,
+    m_l 8); grouped_ffn on the 8 x 128 prefill's plan (top-4 of 128;
+    block_t 16, the dispatch's default there), on the same tokens in
+    tiles of 128, on an 8 x 5 verify pass (block_t 8) and on an 8-token
+    decode step (block_t 8: the engine's default capacity factor sends
+    gpt-oss's decode there);
+    decode_attention at one query per row, cur_len 128-159 in a cache of
+    512, at gpt-oss's 64 / 8 heads of 64 and llama3-8b's 32 / 8 of 128.
+    On their own generator. Returns {kernel name: [case dicts]}."""
+    cfg = archs[GPT_OSS]
+    m, d = cfg.moe, cfg.d_model
+    E, f, k = m.num_experts, m.d_ff_expert, m.top_k
+    g = torch.Generator(device=CUDA)
+    g.manual_seed(2880)
+
+    def randn(*shape, scale=1.0, dtype=torch.float32):
+        return (scale * torch.randn(shape, generator=g, device=CUDA)
+                ).to(dtype)
+
+    out = {"grouped_ffn": [], "moe_ffn": [], "decode_attention": []}
+    wg = randn(d, E, scale=0.02)
+    for dtype in (torch.float32, torch.bfloat16):
+        sz = torch.finfo(dtype).bits // 8
+        w1, w3 = (randn(E, d, f, scale=0.02, dtype=dtype) for _ in range(2))
+        w2 = randn(E, f, d, scale=0.02, dtype=dtype)
+        prefill = randn(8 * 128, d, dtype=dtype)
+        for label, x, bt in (("prefill", prefill, None),
+                             ("prefill block_t 128", prefill, 128),
+                             ("verify", randn(8 * 5, d, dtype=dtype), None),
+                             ("decode", randn(8, d, dtype=dtype), None)):
+            c = grouped_case(label, x, wg, w1, w3, w2, E, k, dtype, sz,
+                             block_t=bt)
+            out["grouped_ffn"].append(dict(c, model=GPT_OSS))
+        out["moe_ffn"] += moe_policy_cases(randn(8, d, dtype=dtype), wg, w1,
+                                           w3, w2, m, dtype, label=GPT_OSS)
+        del w1, w3, w2, prefill
+        torch.cuda.empty_cache()
+    for name, dtype in itertools.product((GPT_OSS, LLAMA),
+                                         (torch.float32, torch.bfloat16)):
+        out["decode_attention"].append(verify_attention_case(
+            archs[name].attn, "served", dtype, g, T=1, label=name,
+            cache=(512, 128, 159)))
+    return out
 
 
 def check_moe_cases(cases):
@@ -1343,16 +1454,20 @@ def ssd_bwd_cases(archs):
 
 # ------------------------------------------------------ parity phase ---
 
-def path_parity(cfg, prompt_len: int, cache_len: int, prefix_len: int = 0):
-    """Same seeded weights, f32, 2 layers: CPU (plain versions) vs GPU
-    (kernels). Audio prompts are frames of the config's codebooks;
-    ``prefix_len`` N(0, 1) prefix embeddings go before the prompt."""
+def path_parity(cfg, prompt_len: int, cache_len: int, prefix_len: int = 0,
+                layers: int = 2):
+    """Same seeded weights, f32, ``layers`` layers: CPU (plain versions)
+    vs GPU (kernels). The weights are drawn on the card, which draws
+    faster than the host, and copied to the host. Audio prompts are
+    frames of the config's codebooks; ``prefix_len`` N(0, 1) prefix
+    embeddings go before the prompt."""
     from repro_torch.bridge import init_params
     from repro_torch.models.model import decode_step, params_to, prefill
     from repro_torch.serving.sampler import greedy
 
-    cfg2 = dataclasses.replace(cfg, num_layers=2)
-    params = init_params(cfg2, seed=0, dtype=torch.float32, device="cpu")
+    cfg2 = dataclasses.replace(cfg, num_layers=layers)
+    on_card = init_params(cfg2, seed=0, dtype=torch.float32, device=CUDA)
+    params = {"cpu": params_to(on_card, "cpu"), CUDA: on_card}
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, size=(4, prompt_len)
                            + frames_of(cfg)).astype(np.int32)
@@ -1360,7 +1475,7 @@ def path_parity(cfg, prompt_len: int, cache_len: int, prefix_len: int = 0):
         np.float32) if prefix_len else None
     runs = []
     for dev in ("cpu", CUDA):
-        p = params_to(params, dev)
+        p = params.pop(dev)
         lg, cache, _ = prefill(cfg2, p, torch.as_tensor(prompts, device=dev),
                                cache_len=cache_len, capacity_factor=8.0,
                                prefix_embeds=None if pe is None
@@ -1376,18 +1491,19 @@ def path_parity(cfg, prompt_len: int, cache_len: int, prefix_len: int = 0):
             tok = greedy(lg)
         toks.append(tok.cpu())
         runs.append((torch.stack(logits), torch.stack(toks)))
+        del p, cache
     (lc, tc), (lg_, tg) = runs
     if not torch.isfinite(lg_[..., :cfg.vocab_size]).all():
         fail(f"parity {cfg.name}: non-finite logits on the GPU")
     err = max_err(lc, lg_)
     same = bool((tc == tg).all())
-    log(f"parity {cfg.name}: 2 layers f32, prefill 4x{prompt_len} "
+    log(f"parity {cfg.name}: {layers} layers f32, prefill 4x{prompt_len} "
         f"(prefix {prefix_len}, frames {frames_of(cfg)}) + 8 "
         f"decode steps: tokens equal={same}, max |logit diff|={err:.3e} "
         f"(tol {PARITY_LOGIT_TOL})")
     if not same or err > PARITY_LOGIT_TOL:
         fail(f"parity {cfg.name}: CPU and GPU disagree")
-    return dict(tokens_equal=same, max_abs_logit_diff=err)
+    return dict(tokens_equal=same, max_abs_logit_diff=err, layers=layers)
 
 
 def perturbed(params, scale: float = 0.05, seed: int = 7):
@@ -1760,10 +1876,13 @@ def bf16_model_check(cfg, params, prompts, *, cache_len: int, module,
 # --------------------------------------------------------- main path ---
 
 def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
-              policies, expect=None, requests: int = 8):
+              policies, expect=None, requests: int = 8,
+              capacity_factor: float = 8.0, params=None):
     """Engine.generate, continuous batching, ``requests`` requests, under
-    each policy. The launch counters are set to 0 just before each policy's
-    continuous run and read just after it; the lockstep run and the
+    each policy, the engine at ``capacity_factor``, on ``params`` (bf16
+    weights drawn from seed 0 on the card when None). The launch counters
+    are set to 0 just before each policy's continuous run and read just
+    after it; the lockstep run and the
     prefill check lie outside that window. Every kernel in ``kernels``
     must have launched; ``expect(engine)`` gives exact counts to hold.
     Each policy's result holds a replayed decode step's wall and device
@@ -1773,7 +1892,8 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
     from repro_torch.models.model import prefill
     from repro_torch.serving import Engine
 
-    params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CUDA)
+    if params is None:
+        params = init_params(cfg, seed=0, dtype=torch.bfloat16, device=CUDA)
     log(f"main path: {cfg.name} {cfg.num_layers} layers, "
         f"{param_count(params) / 1e9:.3f} B parameters, bf16")
     frames = frames_of(cfg)
@@ -1783,7 +1903,7 @@ def main_path(cfg, *, kernels, prompt_len: int, new: int, cache_len: int,
     results, tokens = {}, {}
     for pol in policies:
         eng = Engine(cfg, params, policy=pol, cache_len=cache_len,
-                     device=CUDA)
+                     capacity_factor=capacity_factor, device=CUDA)
         lock, _ = eng.generate(prompts, new, lockstep=True)
         runs = []
         for temp in ("cold", "warm"):   # cold: the loops' capture included
@@ -1874,6 +1994,125 @@ def dense_expect(cfg, new: int):
         return {"ssd_scan": 0, "grouped_ffn": 0, "moe_ffn": 0,
                 "decode_attention": cfg.num_layers * steps}
     return expect
+
+
+def moe_expect(cfg, new: int, decode: str = "moe_ffn"):
+    """Exact launches of an MoE continuous run: one prefill of all the
+    requests (grouped_ffn once per layer), then decode_chunk steps a
+    round until the last of the new-1 tokens after the first
+    (decode_attention and the ``decode`` kernel, moe_ffn on the dense
+    path or grouped_ffn on the sorted one, once per layer per step)."""
+    def expect(eng):
+        steps = -(-(new - 1) // eng.decode_chunk) * eng.decode_chunk
+        L = cfg.num_layers
+        out = {"ssd_scan": 0, "grouped_ffn": L, "moe_ffn": 0,
+               "decode_attention": L * steps}
+        out[decode] += L * steps
+        return out
+    return expect
+
+
+def gpt_oss_served(cfg):
+    """gpt-oss-120b-proxy at its own widths cut to GPT_OSS_LAYERS layers,
+    through Engine.generate as granite's main path runs (8 x 128
+    prompts, 32 new, cache 512, bf16, random weights from seed 0): the
+    engine at GPT_OSS_CF under policy off and batch (k0 1, m_l 8),
+    decode on moe_ffn, then at the engine's default ENGINE_CF under
+    policy off, decode on grouped_ffn (the same function: neither path
+    drops a token). Exact launches (moe_expect), the batch policy
+    activating fewer experts per layer per decode step than off (under a
+    random router), and each run's replayed decode step beside
+    launch/roofline.py's one-card bound of that step (model_shards 1).
+    Returns (runs, the phase's own record, params, prompts)."""
+    import gc
+
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.moe import OFF
+
+    cut = dataclasses.replace(cfg, num_layers=GPT_OSS_LAYERS)
+    batch = XSharePolicy(mode="batch", k0=1, m_l=8)
+    runs, params, prompts, toks = main_path(
+        cut, kernels=("grouped_ffn", "moe_ffn", "decode_attention"),
+        prompt_len=128, new=32, cache_len=512, policies=(OFF, batch),
+        expect=moe_expect(cut, 32), capacity_factor=GPT_OSS_CF)
+    gc.collect()                # the first engines' captured graphs
+    torch.cuda.empty_cache()
+    sorted_runs, _, _, sorted_toks = main_path(
+        cut, kernels=("grouped_ffn", "decode_attention"), prompt_len=128,
+        new=32, cache_len=512, policies=(OFF,),
+        expect=moe_expect(cut, 32, decode="grouped_ffn"),
+        capacity_factor=ENGINE_CF, params=params)
+    runs["off sorted"] = sorted_runs["off"]
+    # bf16 sums in another order: greedy tokens may part after a near tie
+    same = float((sorted_toks["off"] == toks["off"]).mean())
+    act = {p: runs[p]["activated_experts"] for p in runs}
+    log(f"main path {cfg.name}: mean activated experts per layer per "
+        f"decode step (random router) off {act['off']:.3f}, batch "
+        f"{act['batch']:.3f}, off at capacity_factor {ENGINE_CF} "
+        f"{act['off sorted']:.3f}; its tokens equal to off's at "
+        f"{GPT_OSS_CF}: {same:.4f}")
+    if not act["batch"] < act["off"]:
+        fail(f"main path {cfg.name}: batch activates {act['batch']} "
+             f"experts, off {act['off']}")
+    record = dict(
+        reduced={"num_layers": [cfg.num_layers, GPT_OSS_LAYERS],
+                 "why": "36 layers take 233.6 GB in bf16; 8 take 53.7 GB "
+                        "of one card's 80"},
+        capacity_factor={"off": GPT_OSS_CF, "batch": GPT_OSS_CF,
+                         "off sorted": ENGINE_CF},
+        why_capacity_factor="a path selector, not a change of the function "
+                            "(neither path drops a token): E / k = 32 puts "
+                            "decode on moe_ffn, the default 8 on grouped_ffn",
+        sorted_tokens_equal_share=same, activated_experts=act,
+        router="random weights from seed 0",
+        roofline=served_decode_roofline(cut, runs, (OFF, batch)))
+    record["roofline"].update(step_roofline(cut, [(
+        "decode off sorted", served_decode(), OFF,
+        runs["off sorted"]["replayed_step"])]))
+    return runs, record, params, prompts
+
+
+def step_roofline(cfg, cases):
+    """launch/roofline.py's one-card bound (model_shards 1: the experts on
+    one shard) of each (name, ShapeConfig, policy, measured step) case,
+    beside the measured step's wall and device busy ms. Printed, not
+    held."""
+    from repro_torch.launch import roofline as R
+
+    roof = {}
+    for name, shape, pol, measured in cases:
+        nbytes = R.analytic_bytes(cfg, shape, policy=pol, num_devices=1,
+                                  model_shards=1)
+        flops = R.analytic_flops(cfg, shape)
+        t = R.roofline_terms(flops, nbytes, 0.0)
+        bound = max(t["compute_s"], t["memory_s"]) * 1e3
+        busy = measured["device_busy_ms"]
+        roof[name] = dict(
+            bytes=nbytes, flops=flops, memory_ms=t["memory_s"] * 1e3,
+            compute_ms=t["compute_s"] * 1e3, bound_ms=bound,
+            bound_by=t["dominant"], measured_wall_ms=measured["wall_ms"],
+            measured_device_busy_ms=busy,
+            share_of_wall=bound / measured["wall_ms"],
+            share_of_busy=bound / busy if isinstance(busy, float)
+            else "not measured")
+        log(f"roofline {cfg.name} {cfg.num_layers} layers {name} (one "
+            f"card, model_shards 1): {json.dumps(roof[name])}")
+    return roof
+
+
+def served_decode():
+    """The shape of a served decode step: 8 rows, a cache of 512."""
+    from repro_torch.configs.base import ShapeConfig
+    return ShapeConfig(name="served decode", seq_len=512, global_batch=8,
+                       kind="decode", cache_len=512)
+
+
+def served_decode_roofline(cfg, runs, policies):
+    """step_roofline of the served bf16 decode step under each policy
+    beside the main path's replayed step of that policy."""
+    return step_roofline(cfg, [(f"decode {p.mode}", served_decode(), p,
+                                runs[p.mode]["replayed_step"])
+                               for p in policies])
 
 
 # ----------------------------------------------------- families phase ---
@@ -3533,7 +3772,6 @@ def serve_cli_phase(cfg, prof):
     from repro_torch.bridge import init_params
     from repro_torch.configs.base import ShapeConfig, XSharePolicy
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch import roofline as R
     from repro_torch.launch import serve
     from repro_torch.models.moe import OFF
     from repro_torch.serving import Engine
@@ -3596,34 +3834,13 @@ def serve_cli_phase(cfg, prof):
         f"batch {out['batch']['activated_experts']:.2f} < off "
         f"{out['off']['activated_experts']:.2f}")
 
-    # the roofline on one card: the experts on one shard
-    decode = ShapeConfig(name="served decode", seq_len=512, global_batch=8,
-                         kind="decode", cache_len=512)
     pre = ShapeConfig(name="served prefill", seq_len=128, global_batch=8,
                       kind="prefill")
-    roof = {}
-    for name, shape, pol, measured in (
-            ("decode off", decode, OFF, prof["replay"]),
-            ("decode batch", decode, XSharePolicy(mode="batch", k0=1,
-                                                  m_l=8),
-             prof["replay batch"]),
-            ("prefill", pre, OFF, prof["prefill"])):
-        nbytes = R.analytic_bytes(cfg, shape, policy=pol, num_devices=1,
-                                  model_shards=1)
-        flops = R.analytic_flops(cfg, shape)
-        t = R.roofline_terms(flops, nbytes, 0.0)
-        bound = max(t["compute_s"], t["memory_s"]) * 1e3
-        busy = measured["device_busy_ms"]
-        roof[name] = dict(
-            bytes=nbytes, flops=flops, memory_ms=t["memory_s"] * 1e3,
-            compute_ms=t["compute_s"] * 1e3, bound_ms=bound,
-            bound_by=t["dominant"], measured_wall_ms=measured["wall_ms"],
-            measured_device_busy_ms=busy,
-            share_of_wall=bound / measured["wall_ms"],
-            share_of_busy=bound / busy if isinstance(busy, float)
-            else "not measured")
-        log(f"roofline {cfg.name} {name} (one card, model_shards 1): "
-            f"{json.dumps(roof[name])}")
+    batch = XSharePolicy(mode="batch", k0=1, m_l=8)
+    roof = step_roofline(cfg, (
+        ("decode off", served_decode(), OFF, prof["replay"]),
+        ("decode batch", served_decode(), batch, prof["replay batch"]),
+        ("prefill", pre, OFF, prof["prefill"])))
     return {"runs": out, "roofline": roof}
 
 
@@ -4393,6 +4610,164 @@ def trained_spec():
     return res
 
 
+def claims_cfg():
+    """tests/test_system.py's model: 2 layers, d 64, 4 / 2 heads of 16,
+    16 experts top-4 of width 64, a vocabulary of 128."""
+    from repro_torch.configs.base import ArchConfig, AttnConfig, MoEConfig
+    return ArchConfig(
+        name="sys-moe", family="moe", num_layers=2, d_model=64, d_ff=0,
+        vocab_size=128,
+        attn=AttnConfig(num_heads=4, num_kv_heads=2, head_dim=16),
+        moe=MoEConfig(num_experts=16, top_k=4, d_ff_expert=64))
+
+
+CLAIMS_STEPS = 60
+
+
+def claims_train(device):
+    """tests/test_system.py's recipe on ``device``, the one definition
+    that tests/test_torch_system.py (the CPU) and trained_claims (the
+    card) both train by: claims_cfg() from seed 0 in f32, CLAIMS_STEPS
+    steps of make_train_step (cosine_schedule(3e-3, 5, 60), remat off,
+    capacity_factor 4) on 8 x 64 batches of SyntheticLM(128, name="sys",
+    branch=4) (seed 0). Returns (params, each step's loss as a tensor,
+    16 x 64 eval tokens (seed 99), 4 requests of 4 tokens (seed 5))."""
+    from repro_torch.bridge import init_params
+    from repro_torch.data import SyntheticLM, batches
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.optim import adamw_init, cosine_schedule
+
+    cfg = claims_cfg()
+    params = init_params(cfg, seed=0, dtype=torch.float32, device=device)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=cosine_schedule(3e-3, 5, CLAIMS_STEPS),
+                           remat=False, capacity_factor=4.0)
+    lm = SyntheticLM(cfg.vocab_size, name="sys", branch=4)
+    stream = batches(lm, batch=8, seq_len=64, seed=0)
+    losses = []
+    for _ in range(CLAIMS_STEPS):
+        params, opt, m = step(params, opt, next(stream))
+        losses.append(m["loss"])
+    toks = torch.as_tensor(next(batches(lm, batch=16, seq_len=64, seed=99)),
+                           device=device)
+    reqs = torch.as_tensor(lm.sample(np.random.default_rng(5), 4, 4),
+                           device=device)
+    return params, losses, toks, reqs
+
+
+def paper_claims(params, toks, reqs):
+    """tests/test_system.py's five claims on claims_cfg()'s ``params``,
+    at capacity_factor 16, as (name, measure, forwards on the dense path,
+    on the sorted path, holds): (1) batch (k0 1, m_l 2) activates fewer
+    experts than off on 2 tokens a row; (2) eval loss under batch k0 2,
+    m_l 12 ("rich") less off's < 0.2, and k0 0, m_l 1 ("poor") >= rich;
+    (3) spec (k0 1, m_l 0, m_r 2) over 4 requests of 4 tokens activates
+    no more than off, its selected set <= 16; (4) ep (k0 1, m_g 2, 4
+    groups) on 4 tokens a row keeps max_group_load <= 2; (5) the gate
+    mass under batch m_l 1, 4, 12 is monotone and <= 1. A forward of at
+    most 32 tokens takes moe_ffn (the dense path), a longer one
+    grouped_ffn, once per layer. Call measure under torch.no_grad()."""
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.model import forward, loss_fn
+
+    cfg = claims_cfg()
+
+    def aux_of(t, pol, spec_shape=None):
+        return forward(cfg, params, t, policy=pol, spec_shape=spec_shape,
+                       capacity_factor=16.0)[1]
+
+    def act(t, pol, spec_shape=None):
+        return float(aux_of(t, pol, spec_shape)["activated_experts"]
+                     .float().mean())
+
+    def ev(pol):
+        return float(loss_fn(cfg, params, toks, policy=pol, remat=False,
+                             capacity_factor=16.0, lb_weight=0.0)[0])
+
+    def batch(k0, m_l):
+        return XSharePolicy(mode="batch", k0=k0, m_l=m_l)
+
+    off = XSharePolicy(mode="off")
+    spec = XSharePolicy(mode="spec", k0=1, m_l=0, m_r=2)
+    dec = toks[:, :2]
+    return (
+        ("1 batch activates fewer", lambda: dict(
+            off=act(dec, off), batch=act(dec, batch(1, 2))), 2, 0,
+         lambda v: v["batch"] < v["off"]),
+        ("2 quality budget", lambda: dict(
+            base=ev(off), rich=ev(batch(2, 12)), poor=ev(batch(0, 1))), 0, 3,
+         lambda v: v["rich"] - v["base"] < 0.2
+         and v["poor"] >= v["rich"] - 1e-6),
+        ("3 spec budget", lambda: dict(
+            spec=act(reqs, spec, (4, 4)), off=act(reqs, off),
+            selected_set=float(aux_of(reqs, spec, (4, 4))["selected_set"]
+                               .max())), 3, 0,
+         lambda v: v["spec"] <= v["off"] and v["selected_set"] <= 16),
+        ("4 ep group load", lambda: dict(max_group_load=float(aux_of(
+            toks[:, :4], XSharePolicy(mode="ep", k0=1, m_g=2, num_groups=4))
+            ["max_group_load"].max())), 0, 1,
+         lambda v: v["max_group_load"] <= 2),
+        ("5 gate mass", lambda: {f"m_l {m_l}": float(aux_of(
+            dec, batch(1, m_l))["gate_mass"].mean()) for m_l in (1, 4, 12)},
+         3, 0, lambda v: v["m_l 1"] <= v["m_l 4"] <= v["m_l 12"]
+         <= 1.0 + 1e-6))
+
+
+def trained_claims():
+    """tests/test_system.py's five claims on a model trained on the card
+    (claims_train(CUDA)), whose 512-token steps take the sorted path:
+    grouped_ffn and grouped_ffn_bwd once per layer per step, exactly, and
+    the loss falling. Then each of paper_claims held, its measured values
+    printed and its moe_ffn / grouped_ffn launches held exactly."""
+    from repro_torch import kernels as K
+
+    L = claims_cfg().num_layers
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, losses, toks, reqs = claims_train(CUDA)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    train_launches = K.launch_counts()
+    want = {"grouped_ffn": L * CLAIMS_STEPS,
+            "grouped_ffn_bwd": L * CLAIMS_STEPS, "moe_ffn": 0,
+            "moe_ffn_bwd": 0, "decode_attention": 0}
+    wrong = {n: (train_launches[n], v) for n, v in want.items()
+             if train_launches[n] != v}
+    if wrong or not losses[-1] < losses[0]:
+        fail(f"trained claims: launches (counted, expected) {wrong}, loss "
+             f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    out = {}
+    with torch.no_grad():
+        for name, measure, n_dense, n_sorted, holds in paper_claims(
+                params, toks, reqs):
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            vals = measure()
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            want = {"moe_ffn": L * n_dense, "grouped_ffn": L * n_sorted,
+                    "decode_attention": 0}
+            ok = holds(vals)
+            out[name] = dict(values=vals, holds=ok, launches=counts)
+            log(f"trained claims {name}: {json.dumps(vals)} holds={ok}; "
+                f"launches {counts}")
+            wrong = {n: (counts[n], v) for n, v in want.items()
+                     if counts[n] != v}
+            if wrong:
+                fail(f"trained claims {name}: launches (counted, expected) "
+                     f"{wrong}")
+    bad = [n for n, c in out.items() if not c["holds"]]
+    log(f"trained claims: {CLAIMS_STEPS} steps in {train_s:.2f} s on the "
+        f"card, loss {losses[0]:.4f} -> {losses[-1]:.4f}, training "
+        f"launches {train_launches}; claims failing: {bad}")
+    if bad:
+        fail(f"trained claims: {bad} do not hold on the card")
+    return dict(losses=[losses[0], losses[-1]], train_s=train_s,
+                train_launches=train_launches, claims=out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4432,6 +4807,8 @@ def main() -> int:
         cases["grouped_ffn_bwd"] = grouped_bwd_cases(ARCHS)
         cases["ssd_scan_bwd"] = ssd_bwd_cases(ARCHS)
         cases["moe_ffn_bwd"] = moe_bwd_cases(ARCHS)
+        for name, cs in paper_model_cases(ARCHS).items():
+            cases[name] += cs
     bad = [(n, c["dtype"], c.get("policy"), c.get("model"),
             c.get("init_state"), c.get("dt_shift"))
            for n, cs in cases.items() for c in cs if not c["ok"]]
@@ -4451,6 +4828,10 @@ def main() -> int:
                                   prefix_len=FAMILY_PREFIX)
         parity[AUDIO] = path_parity(ARCHS[AUDIO], 64, 128)
         parity[f"{ARCH} spec"] = spec_parity(cfg, 64, 128)
+        parity[GPT_OSS] = path_parity(ARCHS[GPT_OSS], 64, 128,
+                                      layers=GPT_OSS_PARITY_LAYERS)
+        parity[LLAMA] = path_parity(ARCHS[LLAMA], 64, 128)
+        torch.cuda.empty_cache()
 
     results, prof = {}, {}
     with Phase(f"main path {ARCH}"):
@@ -4506,6 +4887,32 @@ def main() -> int:
         results[f"{DS} ep layer"] = {
             "layer calls": {"launches": ep[f"{DS} layer"]["launches"]}}
         torch.cuda.empty_cache()
+    # the paper's evaluation model at its own widths, 8 of its 36 layers
+    paper = {}
+    gcfg = ARCHS[GPT_OSS]
+    with Phase(f"main path {GPT_OSS}"):
+        results[GPT_OSS], paper[GPT_OSS], params, prompts = gpt_oss_served(
+            gcfg)
+    del params
+    torch.cuda.empty_cache()
+    with Phase(f"bf16 check {GPT_OSS}"), torch.no_grad():
+        from repro_torch.bridge import init_params
+        cut = dataclasses.replace(gcfg, num_layers=GPT_OSS_PARITY_LAYERS)
+        bf16_check[GPT_OSS] = bf16_model_check(
+            cut, init_params(cut, seed=0, dtype=torch.bfloat16, device=CUDA),
+            prompts, cache_len=512, module=dispatch, attr="grouped_ffn",
+            plain=grouped_ffn_plain)
+        torch.cuda.empty_cache()
+    # the dense family at head dim 128, all 32 layers
+    lcfg = ARCHS[LLAMA]
+    with Phase(f"main path {LLAMA}"):
+        results[LLAMA], params, _, _ = main_path(
+            lcfg, kernels=("decode_attention",), prompt_len=128, new=32,
+            cache_len=512, policies=(OFF,), expect=dense_expect(lcfg, 32))
+        paper[LLAMA] = {"roofline": served_decode_roofline(
+            lcfg, results[LLAMA], (OFF,))}
+    del params
+    torch.cuda.empty_cache()
     for name in SSM_ARCHS:
         scfg = ARCHS[name]
         kernels = ("ssd_scan",) + (("decode_attention",)
@@ -4577,6 +4984,8 @@ def main() -> int:
     with Phase("trained spec"):
         train["trained_spec"] = trained_spec()
         torch.cuda.empty_cache()
+    with Phase("trained claims"):
+        train["trained_claims"] = trained_claims()
 
     sources = {"grouped_ffn": ("src/repro_torch/kernels/csrc/grouped_ffn.cu",
                                "src/repro/kernels/moe_ffn.py:155"),
@@ -4636,6 +5045,7 @@ def main() -> int:
                       "graphs": graphs, "serve_cli": serve_cli,
                       "durability": durability,
                       "ep": ep, "train": train, "f8_cache": f8_cache,
+                      "paper_models": paper,
                       "dryrun": dry, "card": card}),
           flush=True)
     print(gpu_name_power(), flush=True)

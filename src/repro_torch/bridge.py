@@ -98,8 +98,10 @@ def dtypes_of(params: Mapping) -> Dict[str, str]:
 def dense_sampler(seed: int, dtype: torch.dtype, device: DeviceLike,
                   generator: Optional[torch.Generator]):
     """(device, dense): ``dense(shape, dt=dtype, scale=0.02)`` draws
-    scale * N(0, 1) in f32 from ``generator`` (a new one seeded with
-    ``seed`` when None) and casts it to dt. On the meta device, which
+    N(0, scale) from ``generator`` (a new one seeded with ``seed`` when
+    None) in place into a new tensor of dtype dt, so no leaf is ever
+    held in a second dtype beside it (8 layers of gpt-oss-120b-proxy's
+    stacked experts are one 17 GB bf16 leaf). On the meta device, which
     has no generator, it gives an empty tensor of the shape and dtype:
     a tree of meta tensors is the parameters' shapes and nothing else
     (``launch/dryrun.py`` traces a step over it)."""
@@ -114,8 +116,8 @@ def dense_sampler(seed: int, dtype: torch.dtype, device: DeviceLike,
         g.manual_seed(seed)
 
     def dense(shape, dt=dtype, scale=0.02):
-        w = torch.randn(shape, generator=g, device=dev, dtype=torch.float32)
-        return (scale * w).to(dt)
+        return torch.empty(shape, dtype=dt, device=dev).normal_(
+            0.0, scale, generator=g)
     return dev, dense
 
 

@@ -1684,3 +1684,79 @@ def test_serve_cli_on_the_card(cuda, capsys):
         toks.append(got)
     np.testing.assert_array_equal(toks[1], toks[0])
     assert capsys.readouterr().out.count("generated: (4, 12)") == 2
+
+
+# ---- gpt-oss-120b-proxy's and llama3-8b's serving shapes ---------------
+# d = f = 2880 (22.5 x 128: a half tile at the edge of grouped_ffn's
+# 128-column down pass), 128 experts top-4 with normalized gates; the
+# weights are drawn on the card (3.2 B elements a dtype)
+
+def _paper_moe(dev, dtype, seed):
+    from repro_torch.configs.registry import ARCHS
+    cfg = ARCHS["gpt-oss-120b-proxy"]
+    m, d = cfg.moe, cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dt=dtype):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dt)
+    w1, w3 = (randn(m.num_experts, d, m.d_ff_expert, scale=0.02)
+              for _ in range(2))
+    w2 = randn(m.num_experts, m.d_ff_expert, d, scale=0.02)
+    return m, randn, randn(d, m.num_experts, scale=0.02, dt=torch.float32), \
+        (w1, w3, w2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_gpt_oss_decode_shape(cuda, dtype):
+    """One decode step of 8 tokens, policy off (128 slots) and batch (k0
+    1, m_l 8: 16 slots), routed as the model routes."""
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.moe import OFF, policy_max_active, route
+    m, randn, wg, (w1, w3, w2) = _paper_moe(cuda, dtype, 28)
+    x = randn(8, wg.shape[0])
+    for pol in (OFF, XSharePolicy(mode="batch", k0=1, m_l=8)):
+        _, _, combine, _ = route({"wg": wg}, x, m, pol)
+        active = (combine != 0).any(0)
+        ma = policy_max_active(pol, 8, m.num_experts)
+        assert int(active.sum()) <= ma
+        args = (x, w1, w3, w2, combine, active)
+        out = K.moe_ffn(*args, max_active=ma)
+        check(out, K.moe_ffn_plain(*args), dtype)
+        assert torch.equal(out, K.moe_ffn(*args, max_active=ma))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,block_t", [(8 * 128, None), (8 * 128, 128),
+                                       (8 * 5, None), (8, None)],
+                         ids=["prefill", "prefill-bt128", "verify", "decode"])
+def test_grouped_ffn_gpt_oss_plans(cuda, dtype, T, block_t):
+    """The 8 x 128 prefill's plan (top-4 of 128: block_t 16 by default,
+    and 128), an 8 x 5 verify pass's (block_t 8) and an 8-token decode
+    step's at the engine's default capacity factor (block_t 8)."""
+    from repro_torch import kernels as K
+    from repro_torch.core.routing import topk_route
+    from repro_torch.models.dispatch import dispatch_plan, gather_tokens
+    m, randn, wg, (w1, w3, w2) = _paper_moe(cuda, dtype, T)
+    x = randn(T, wg.shape[0])
+    idx, w = topk_route(x.float() @ wg, m.top_k)
+    plan = dispatch_plan(idx, w, m.num_experts, block_t=block_t)
+    assert plan.block_t == (block_t or {1024: 16, 40: 8, 8: 8}[T])
+    args = (gather_tokens(x, plan), w1, w3, w2, plan.tile_eid,
+            plan.tile_valid)
+    out = K.grouped_ffn(*args, block_t=plan.block_t)
+    check(out, K.grouped_ffn_plain(*args, block_t=plan.block_t), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,dh", [(64, 8, 64), (32, 8, 128)],
+                         ids=["gpt-oss", "llama3"])
+def test_decode_attention_paper_model_decode_shape(cuda, dtype, H, Hkv, dh):
+    """8 rows, one query each, cur_len 128-159 in a cache of 512."""
+    from repro_torch import kernels as K
+    g = torch.Generator().manual_seed(H + dh)
+    cur = torch.randint(128, 160, (8,), generator=g)
+    args = _cached_case(g, cuda, dtype, 8, 1, H, Hkv, dh, 512, cur)
+    out = K.decode_attention_cached(*args)
+    check(out, K.decode_attention_cached_plain(*args), dtype)
+    assert torch.equal(out, K.decode_attention_cached(*args))
