@@ -258,6 +258,33 @@ each prints its wall time):
                 consistent, peak-row ratios, the EP layer's and the
                 sorted path's times, and each shard's own tiles timed as
                 a grouped_ffn call alone (the slowest shard's time).
+  8c. ep ranks  one process per shard (repro_torch.ep.dist.spawn), each
+                holding only its experts, rows exchanged by
+                torch.distributed.all_to_all_single; the backend and rank
+                count printed on a line of their own. (a) 4 ranks over
+                gloo on the one card at deepseek-r1-proxy's routed
+                experts, one layer (64 experts, 5.6 GB, a rank), the
+                methods of 8b (Algorithm 6 over 4 groups) at 16 tokens
+                and 16 x (1 + 3), 4 steps each: the gathered y bit-equal
+                to the one-process EPExecutor's (itself bit-equal to
+                sorted_expert_ffn(block_t=8)), every EPStats field
+                equal, one grouped_ffn launch per layer call on each
+                rank, each rank's own grouped_ffn call within TOL of its
+                plain version and timed alone (ranks take turns behind a
+                barrier): the slowest rank's ms, the peak-rows ratios,
+                each rank's expert bytes on the card against cap / E of
+                the layer's, the exchange's NVLink bound per layer call
+                on a four-card host (a bound, not a measurement); (b)
+                granite-moe at full width, bf16, 8 x 128 prompts, 32
+                new, served by the 4 ranks (8 experts each, cut from a
+                host copy) through the lockstep loop, policy off and
+                Algorithm 6: tokens equal the one-process
+                dispatch="sorted" run's, exact launches on each rank,
+                one decode step's per-rank EPStats, and the continuous
+                loop's graph capture refused with a clear error on
+                every rank; (c) one rank over NCCL: (a)'s layer at S 1
+                and one granite decode step bit-equal to the
+                one-process executor at S 1.
   9. train      (a) granite-moe cut to 2 layers, f32, 4 x 64 synthetic
                 tokens, on the CPU (plain versions) and on the card
                 (grouped_ffn and grouped_ffn_bwd): every gradient leaf
@@ -3310,6 +3337,520 @@ def ep_ratios(rec) -> dict:
     return res
 
 
+# ------------------------------------------------------- EP ranks phase ---
+
+EP_RANKS = 4           # processes on the one card, over gloo
+EP_RANK_STEPS = 4      # steps of each method at each shape, part (a)
+EP_RANK_NEW = 32       # part (b)'s new tokens
+# Algorithm 6 over the ranks' 4 groups at the 8-group settings' expert
+# budgets: 4 x 10 = 8 x 5 (the layer), 4 x 4 = 8 x 2 (granite)
+EP_RANK_MG_LAYER, EP_RANK_MG_SERVE = 10, 4
+
+
+def expert_stacks(eids, d: int, f: int, *, seed: int, device,
+                  dtype=torch.bfloat16):
+    """w1, w3 (n, d, f) and w2 (n, f, d) of the experts ``eids`` (-1
+    reads expert 0, as a cut does), each expert drawn from its own
+    generator seeded by (seed, expert): a rank draws exactly its own
+    experts, and the whole layer drawn the same way holds the same
+    bits."""
+    ids = np.clip(np.asarray(eids), 0, None).tolist()
+    n = len(ids)
+    w1 = torch.empty((n, d, f), dtype=dtype, device=device)
+    w3 = torch.empty((n, d, f), dtype=dtype, device=device)
+    w2 = torch.empty((n, f, d), dtype=dtype, device=device)
+    for j, e in enumerate(ids):
+        g = torch.Generator(device=device)
+        g.manual_seed(seed * 1_000_003 + e)
+        for dst, shape, scale in ((w1, (d, f), d ** -0.5),
+                                  (w3, (d, f), d ** -0.5),
+                                  (w2, (f, d), f ** -0.5)):
+            dst[j] = torch.randn(shape, generator=g, device=device,
+                                 dtype=dtype).mul_(scale)
+    return w1, w3, w2
+
+
+def card_bytes(dev) -> int:
+    """torch.cuda.memory_allocated once the card is idle (0 off the
+    card)."""
+    if dev.type != "cuda":
+        return 0
+    torch.cuda.synchronize(dev)
+    return torch.cuda.memory_allocated(dev)
+
+
+def ep_rank_methods(E: int, S: int, hist0):
+    """benchmarks/table2_ep.py's methods at S shards: name -> (routing
+    side, first placement, executor keywords). A rank holds its
+    expert_cap experts, so every placement is planned within the even
+    split (``max_expert_cap``), the bound a DistEPExecutor plans in."""
+    from repro_torch import ep as EP
+    rep = dict(replicate_hot=EP_REPLICATE_HOT, max_replicas=EP_MAX_REPLICAS)
+    even = dict(max_expert_cap=EP.even_cap(E, S))
+    even_rep = dict(max_expert_cap=EP.even_cap(E, S, **rep), **rep)
+    return {"off": ("off", EP.contiguous_placement(E, S), even),
+            "alg6": ("x", EP.plan_placement(
+                hist0, S, max_per_shard=even["max_expert_cap"]), even),
+            "alg6_rep": ("x", EP.plan_placement(
+                hist0, S, max_per_shard=even_rep["max_expert_cap"], **rep),
+                even_rep)}
+
+
+def ep_rank_layer_inputs(cfg, *, S: int, steps: int, seed: int, device):
+    """Part (a)'s inputs, drawn here: per shape (16 tokens; 16 x (1 + 3))
+    ``steps`` steps of rows and their routing by a random router under
+    policy off and Algorithm 6 over S groups, the histograms the
+    placements follow; and the references on the whole layer (drawn by
+    ``expert_stacks``): the one-process EPExecutor's (y, EPStats) at
+    block_t 8, each y held bit-equal to sorted_expert_ffn(block_t=8),
+    and the one-process executor at S 1 on two decode steps (part
+    (c)). The layer's weights are freed before returning."""
+    from repro_torch import ep as EP
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.dispatch import sorted_expert_ffn
+    from repro_torch.models.moe import OFF, route
+
+    m = cfg.moe
+    E, d, f = m.num_experts, cfg.d_model, m.d_ff_expert
+    bt = EP_BLOCK_T
+    w = expert_stacks(range(E), d, f, seed=seed, device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 1)
+    wg = torch.randn((d, E), generator=g, device=device,
+                     dtype=torch.bfloat16).mul_(d ** -0.5)
+    alg6 = XSharePolicy(mode="ep", k0=1, m_g=EP_RANK_MG_LAYER, num_groups=S)
+    spec, refs = {"S": S, "E": E, "d": d, "f": f, "k": m.top_k, "seed": seed,
+                  "block_t": bt, "shapes": {}}, {}
+    for shape, T in (("dec", 16), ("spec", 16 * (1 + EP_SPEC_LS))):
+        xs, routes, hist = [], {"off": [], "x": []}, []
+        for _ in range(steps):
+            x = torch.randn((T, d), generator=g, device=device,
+                            dtype=torch.bfloat16)
+            xs.append(x)
+            for side, pol in (("off", OFF), ("x", alg6)):
+                idx, gw, _, _ = route({"wg": wg}, x, m, pol)
+                routes[side].append((idx, gw))
+            idx, gw = routes["x"][-1]
+            # each expert's rows, most of them 0 (the placements stay
+            # within the even split: ep_rank_methods)
+            counts = torch.zeros(E, dtype=torch.float64, device=device)
+            counts.index_add_(0, idx.reshape(-1).clamp(min=0).long(),
+                              (gw.reshape(-1) != 0).double())
+            hist.append(counts.cpu().numpy())
+        methods = ep_rank_methods(E, S, hist[0])
+        ref = {}
+        for name, (side, pl, kw) in methods.items():
+            ex = EP.EPExecutor(S, pl, device=device, block_t=bt, **kw)
+            ys, sts = [], []
+            for t in range(steps):
+                if name != "off" and t > 0:
+                    ex.update_placement(hist[t])
+                args = (xs[t], *w, *routes[side][t])
+                y, st = ex(*args)
+                if not torch.equal(y, sorted_expert_ffn(*args, block_t=bt)):
+                    fail(f"ep ranks {cfg.name} {shape} {name} step {t}: "
+                         f"the one-process y != sorted_expert_ffn")
+                ys.append(y.cpu())
+                sts.append(st)
+            ref[name] = {"y": ys, "stats": sts}
+        refs[shape] = ref
+        spec["shapes"][shape] = {
+            "x": [x.cpu() for x in xs], "hist": hist,
+            "routes": {s: [(i.cpu(), v.cpu()) for i, v in r]
+                       for s, r in routes.items()}}
+    # part (c): the layer at S 1, policy off, two decode-shape steps
+    one = EP.EPExecutor(1, EP.contiguous_placement(E, 1), device=device,
+                        block_t=bt)
+    dec = spec["shapes"]["dec"]
+    refs["world1"] = [one(dec["x"][t].to(device), *w,
+                          *[a.to(device) for a in dec["routes"]["off"][t]]
+                          )[0].cpu() for t in range(2)]
+    del w
+    torch.cuda.empty_cache()
+    return spec, refs
+
+
+def ep_rank_layer(rk, spec: dict) -> dict:
+    """Part (a) on one rank, for each shape and method
+    (``ep_rank_method``)."""
+    return {shape: {name: ep_rank_method(rk, spec, shape, inp, name, *how)
+                    for name, how in ep_rank_methods(
+                        spec["E"], spec["S"], inp["hist"][0]).items()}
+            for shape, inp in spec["shapes"].items()}
+
+
+def ep_rank_method(rk, spec: dict, shape: str, inp: dict, name: str,
+                   side: str, pl, kw: dict) -> dict:
+    """One method of part (a) on one rank: the rank's own experts drawn
+    (``expert_stacks`` of its ``local_eids``; the memory they take on the
+    card read around the draw), the steps run through a DistEPExecutor
+    (update_placement between steps, the experts drawn again when the
+    rank's set changed), counters set to 0 just before each layer call
+    and read just after; at the last step the rank's grouped_ffn call
+    checked against its plain version and timed alone, the ranks taking
+    turns behind a barrier."""
+    import torch.distributed as dist
+
+    from repro_torch import ep as EP
+    from repro_torch import kernels as K
+    from repro_torch.kernels import grouped_ffn
+
+    dev, S = rk.device, spec["S"]
+    d, f, bt = spec["d"], spec["f"], spec["block_t"]
+    ex = EP.DistEPExecutor(pl, device=dev, block_t=bt, **kw)
+    m0 = card_bytes(dev)
+    held = ex.local_eids.copy()
+    w = expert_stacks(held, d, f, seed=spec["seed"], device=dev)
+    mem = card_bytes(dev) - m0
+    ys, sts, calls = [], [], []
+    launches = {n: 0 for n in K.KERNELS}
+    args = None
+    for t in range(len(inp["x"])):
+        if name != "off" and t > 0:
+            ex.update_placement(inp["hist"][t])
+            if not np.array_equal(ex.local_eids, held):
+                args = w = None
+                held = ex.local_eids.copy()
+                w = expert_stacks(held, d, f, seed=spec["seed"], device=dev)
+        args = (inp["x"][t].to(dev), *w,
+                *[a.to(dev) for a in inp["routes"][side][t]])
+        K.reset_launch_counts()
+        y, st = ex(*args)
+        got = K.launch_counts()
+        for n, c in got.items():
+            launches[n] += c
+        calls.append(got["grouped_ffn"])
+        ys.append(y.cpu())
+        sts.append(st)
+    # the rank's own grouped_ffn call of the last step
+    _, _, _, plan, xs, _ = ex._run(*args, None, sync=True)
+    eid, valid = plan.tile_eid, plan.tile_valid
+    check = grouped_gate(
+        f"ep ranks {shape} {name} rank {rk.rank}",
+        grouped_ffn(xs, *w, eid, valid, block_t=bt),
+        grouped_plain(xs, *w, eid, valid, block_t=bt), valid, bt)
+    trows = int(valid.sum()) * bt
+    occ = int(torch.unique(eid[valid != 0]).numel()) if trows else 0
+    ms = None
+    for r in range(S):
+        dist.barrier()
+        if r == rk.rank and trows and dev.type == "cuda":
+            ms = time_ms(lambda: grouped_ffn(xs, *w, eid, valid, block_t=bt))
+    dist.barrier()
+    return dict(
+        y=ys, stats=sts, layer_calls=calls, launches=launches,
+        expert_cap=pl.expert_cap, weight_bytes=mem,
+        weight_bytes_cap_over_E=pl.expert_cap * 3 * d * f * 2,
+        grouped_ffn=dict(
+            rows=xs.shape[0], tile_rows=trows, experts=occ, ms=ms,
+            bound_ms=bound_ms(2 * trows * d * 2 + occ * 3 * d * f * 2,
+                              6.0 * trows * d * f, torch.bfloat16)[0]
+            if trows else 0.0,
+            max_abs_err=check["max_abs_err"], tol=check["tol"]))
+
+
+def ep_rank_serve(rk, spec: dict) -> dict:
+    """Part (b) on one rank: granite-moe at full width, drawn on the card
+    as the parent drew it, copied to the host, the rank's experts cut
+    from that copy (``bridge.cut_experts``) and the card's full copy
+    freed; for each policy a DistEPExecutor and Engine(dispatch="ep")
+    through the lockstep loop, counters set to 0 just before and read
+    just after; the EPStats of the first decode step's layers (its calls
+    recorded); then the continuous path, whose loop capture must raise."""
+    from repro_torch import bridge
+    from repro_torch import ep as EP
+    from repro_torch import kernels as K
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.models.model import params_to
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving import Engine
+
+    dev, S, cfg = rk.device, spec["S"], spec["cfg"]
+    L, E = cfg.num_layers, cfg.moe.num_experts
+    host = params_to(bridge.init_params(cfg, seed=0, dtype=torch.bfloat16,
+                                        device=dev), "cpu")
+    torch.cuda.empty_cache()
+    pols = {"off": (OFF, EP.contiguous_placement(E, S)),
+            "alg6": (XSharePolicy(mode="ep", k0=1, m_g=EP_RANK_MG_SERVE,
+                                  num_groups=S),
+                     EP.plan_placement(spec["hist"], S))}
+    out = {}
+    for name, (pol, pl) in pols.items():
+        ex = EP.DistEPExecutor(pl, device=dev)
+        params = bridge.cut_experts(host, ex.local_eids, device=dev)
+        eng = Engine(cfg, params, policy=pol, cache_len=spec["cache_len"],
+                     dispatch="ep", device=dev)
+        rec = RecordingEP(ex)
+        with EP.ep_context(rec):
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            toks, _ = eng.generate(spec["prompts"], spec["new"],
+                                   lockstep=True)
+            wall = time.perf_counter() - t0
+            counts = K.launch_counts()
+        with EP.ep_context(ex):
+            first = [ex(*c)[1] for c in rec.calls[L:2 * L]]
+            refused = None
+            if name == "off":
+                try:
+                    eng.generate(spec["prompts"], 2)
+                except RuntimeError as e:
+                    refused = str(e)
+        moe = params["layers"]["moe"]
+        out[name] = dict(
+            tokens=toks, launches=counts, layer_calls=len(rec.calls),
+            wall_s=wall, expert_cap=pl.expert_cap,
+            moe_bytes=sum(moe[n].numel() * moe[n].element_size()
+                          for n in ("w1", "w3", "w2")),
+            decode_step_stats={
+                fl: np.sum([getattr(st, fl) for st in first], axis=0)
+                for fl in ("computed_rows", "tile_rows", "sent_rows",
+                           "a2a_bytes")},
+            capture_refused=refused)
+        del eng, params, rec
+        torch.cuda.empty_cache()
+    return out
+
+
+def ep_rank_main(rk, layer_spec: dict, serve_spec: dict) -> dict:
+    """What each of the gloo ranks runs: part (a), then part (b)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        return {"layer": ep_rank_layer(rk, layer_spec),
+                "serve": ep_rank_serve(rk, serve_spec)}
+
+
+def ep_rank_world1(rk, layer_spec: dict, serve_spec: dict) -> dict:
+    """Part (c), one rank over NCCL: the layer at S 1 (all experts drawn
+    by the rank) on two decode-shape steps, and one granite decode step
+    under the rank's binding (logits)."""
+    from repro_torch import bridge
+    from repro_torch import ep as EP
+    from repro_torch.models.model import params_to
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev, spec = rk.device, layer_spec
+    E = spec["E"]
+    with torch.no_grad():
+        ex = EP.DistEPExecutor(EP.contiguous_placement(E, 1), device=dev,
+                               block_t=spec["block_t"])
+        w = expert_stacks(ex.local_eids, spec["d"], spec["f"],
+                          seed=spec["seed"], device=dev)
+        dec = spec["shapes"]["dec"]
+        ys = [ex(dec["x"][t].to(dev), *w,
+                 *[a.to(dev) for a in dec["routes"]["off"][t]])[0].cpu()
+              for t in range(2)]
+        del w
+        torch.cuda.empty_cache()
+        cfg = serve_spec["cfg"]
+        host = params_to(bridge.init_params(
+            cfg, seed=0, dtype=torch.bfloat16, device=dev), "cpu")
+        gex = EP.DistEPExecutor(
+            EP.contiguous_placement(cfg.moe.num_experts, 1), device=dev)
+        params = bridge.cut_experts(host, gex.local_eids, device=dev)
+        logits = ep_decode_logits(cfg, params, serve_spec, gex, dev)
+    return {"layer_y": ys, "decode_logits": logits,
+            "backend": rk.backend, "world_size": rk.size}
+
+
+def ep_decode_logits(cfg, params, spec: dict, ex, dev):
+    """Logits of one decode step after the prefill of spec's prompts,
+    both under ``ex`` with dispatch="ep"."""
+    from repro_torch import ep as EP
+    from repro_torch.models.model import decode_step, prefill
+    from repro_torch.serving.sampler import greedy
+    toks = torch.as_tensor(spec["prompts"], device=dev)
+    with EP.ep_context(ex):
+        lg, cache, _ = prefill(cfg, params, toks, cache_len=spec["cache_len"],
+                               capacity_factor=8.0, dispatch="ep")
+        lg2, _, _ = decode_step(cfg, params, greedy(lg)[:, None], cache,
+                                capacity_factor=8.0, dispatch="ep")
+    return lg2.float().cpu()
+
+
+def ep_ranks_phase(dcfg, gcfg, *, steps: int = EP_RANK_STEPS,
+                   new: int = EP_RANK_NEW, seed: int = 0):
+    """Expert parallelism with one process per shard: ``EP_RANKS`` ranks
+    over gloo on the one card (ep/dist.py spawn), each holding only its
+    experts, rows exchanged by all_to_all_single. (a) deepseek-r1-proxy's
+    routed experts, one layer, the table2_ep methods at S 4: every y
+    bit-equal to the one-process EPExecutor's (itself bit-equal to
+    sorted_expert_ffn(block_t=8)), every EPStats field equal, one
+    grouped_ffn launch per layer call on each rank, each rank's own
+    grouped_ffn call within TOL of its plain version and timed alone;
+    the slowest rank's ms, the peak-rows ratios off / alg6, each rank's
+    expert bytes on the card against cap / E of the layer's, and two
+    NVLink bounds per layer call on a four-card host, of the occupied
+    rows (a2a_bytes) and of the exchange's M-row blocks. (b)
+    granite-moe at full width served by the ranks through the lockstep
+    loop, policy off and Algorithm 6: tokens equal the one-process
+    dispatch="sorted" run's, exact launches on each rank, one decode
+    step's per-rank EPStats, and the continuous path's graph capture
+    refused with a clear error on every rank. (c) one rank over NCCL:
+    the layer at S 1 and one granite decode step bit-equal to the
+    one-process executor at S 1."""
+    from repro_torch import bridge
+    from repro_torch import ep as EP
+    from repro_torch.configs.base import XSharePolicy
+    from repro_torch.ep import dist as DIST
+    from repro_torch.launch import roofline as RF
+    from repro_torch.models.moe import OFF
+    from repro_torch.serving import Engine
+    from repro_torch.serving.step import gate_probe
+
+    dev, S = CUDA, EP_RANKS
+    t0 = time.perf_counter()
+    layer_spec, layer_ref = ep_rank_layer_inputs(dcfg, S=S, steps=steps,
+                                                 seed=seed, device=dev)
+    # part (b)'s references: the one-process sorted run per policy, and
+    # part (c)'s decode logits under the one-process executor at S 1
+    params = bridge.init_params(gcfg, seed=0, dtype=torch.bfloat16,
+                                device=dev)
+    prompts = np.random.default_rng(1).integers(
+        0, gcfg.vocab_size, (8, 128)).astype(np.int32)
+    hist = gate_probe(gcfg, params, torch.as_tensor(prompts, device=dev)) \
+        .cpu().numpy().astype(np.float64)
+    serve_spec = {"cfg": gcfg, "S": S, "prompts": prompts, "new": new,
+                  "cache_len": 512, "hist": hist}
+    pols = {"off": OFF, "alg6": XSharePolicy(
+        mode="ep", k0=1, m_g=EP_RANK_MG_SERVE, num_groups=S)}
+    sorted_toks = {}
+    for name, pol in pols.items():
+        eng = Engine(gcfg, params, policy=pol, cache_len=512,
+                     dispatch="sorted", device=dev)
+        sorted_toks[name] = eng.generate(prompts, new)[0]
+        del eng
+    one = EP.EPExecutor(1, EP.contiguous_placement(gcfg.moe.num_experts, 1),
+                        device=dev)
+    world1_logits = ep_decode_logits(gcfg, params, serve_spec, one, dev)
+    del params
+    torch.cuda.empty_cache()
+    prep_s = time.perf_counter() - t0
+
+    log(f"ep ranks: backend gloo, {S} ranks on {torch.cuda.device_count()} "
+        f"card(s)")
+    t0 = time.perf_counter()
+    outs = DIST.spawn(ep_rank_main, S, backend="gloo", device=dev,
+                      args=(layer_spec, serve_spec))
+    ranks_s = time.perf_counter() - t0
+    fields = ("computed_rows", "tile_rows", "sent_rows", "a2a_bytes",
+              "count_matrix")
+    # (a): bit-equality, stats, launches; figures from the ranks
+    res_a, dm = {}, layer_spec["d"]
+    for shape, ref in ((s, layer_ref[s]) for s in layer_spec["shapes"]):
+        rec, per = {}, {}
+        for name, want in ref.items():
+            for r, o in enumerate(outs):
+                got = o["layer"][shape][name]
+                for t, (y, st) in enumerate(zip(got["y"], got["stats"])):
+                    ok = torch.equal(y, want["y"][t]) and all(
+                        np.array_equal(getattr(st, fl),
+                                       getattr(want["stats"][t], fl))
+                        for fl in fields) and \
+                        st.max_rows == want["stats"][t].max_rows
+                    if not ok:
+                        fail(f"ep ranks {DS} {shape} {name} rank {r} step "
+                             f"{t}: y or EPStats != the one-process "
+                             f"executor's")
+                if got["layer_calls"] != [1] * len(got["y"]):
+                    fail(f"ep ranks {DS} {shape} {name} rank {r}: "
+                         f"grouped_ffn launches per layer call "
+                         f"{got['layer_calls']}")
+            sts = outs[0]["layer"][shape][name]["stats"]
+            rec[name] = {"tile_peak": [s.peak_tile_rows for s in sts],
+                         "row_peak": [s.peak_rows for s in sts],
+                         "a2a": [s.total_a2a_bytes for s in sts]}
+            ranks = [o["layer"][shape][name] for o in outs]
+            slow = max(range(S), key=lambda r: ranks[r]["grouped_ffn"]["ms"]
+                       or 0.0)
+            per[name] = dict(
+                expert_cap=ranks[0]["expert_cap"],
+                weight_gb_per_rank=[r["weight_bytes"] / 1e9 for r in ranks],
+                weight_gb_cap_over_E=ranks[0]["weight_bytes_cap_over_E"]
+                / 1e9,
+                grouped_ffn_per_rank=[r["grouped_ffn"] for r in ranks],
+                slowest_rank=slow,
+                slowest_rank_ms=ranks[slow]["grouped_ffn"]["ms"],
+                occupied_rows_nvlink_bound_ms_per_layer_call=float(np.mean(
+                    [RF.roofline_terms(0.0, 0.0, RF.ep_collective_bytes(s))
+                     ["collective_s"] * 1e3 for s in sts])),
+                padded_exchange_bytes_per_rank=float(np.mean(
+                    [RF.ep_padded_exchange_bytes(S, s.max_rows, dm, 2)
+                     for s in sts])),
+                padded_exchange_nvlink_bound_ms_per_layer_call=float(np.mean(
+                    [RF.ep_padded_exchange_bytes(S, s.max_rows, dm, 2)
+                     / RF.LINK_BW * 1e3 for s in sts])),
+                a2a_bytes_per_rank=np.mean([s.a2a_bytes for s in sts],
+                                           axis=0).tolist(),
+                launches_rank0=ranks[0]["launches"])
+        res = {"per_method": per}
+        res.update(ep_ratios(rec))
+        res["slowest_rank_ms_ratio_off_over_alg6"] = \
+            (per["off"]["slowest_rank_ms"] or 0.0) / \
+            max(per["alg6"]["slowest_rank_ms"] or 0.0, 1e-9)
+        res_a[shape] = res
+        log(f"ep ranks {DS} layer {shape} (the NVLink 4 bounds on a "
+            f"four-card host, not measurements: of the occupied rows, "
+            f"a2a_bytes, and of the exchange as it moves them, M rows a "
+            f"peer): {json.dumps(res)}")
+    # (b)
+    L = gcfg.num_layers
+    expect = {n: 0 for n in outs[0]["serve"]["off"]["launches"]}
+    expect.update(grouped_ffn=L * new, decode_attention=L * (new - 1))
+    res_b = {}
+    for name in pols:
+        runs = [o["serve"][name] for o in outs]
+        for r, run in enumerate(runs):
+            if not np.array_equal(run["tokens"], sorted_toks[name]):
+                fail(f"ep ranks {gcfg.name} {name} rank {r}: tokens != the "
+                     f"one-process dispatch='sorted' run's")
+            if run["launches"] != expect:
+                fail(f"ep ranks {gcfg.name} {name} rank {r}: launches "
+                     f"{run['launches']}, want {expect}")
+            if name == "off" and not (run["capture_refused"] and
+                                      "CUDA graph" in run["capture_refused"]):
+                fail(f"ep ranks {gcfg.name} rank {r}: the continuous "
+                     f"loop's capture under gloo gave "
+                     f"{run['capture_refused']!r}, want a clear refusal")
+        res_b[name] = dict(
+            tokens_equal_sorted=True, launches_per_rank=runs[0]["launches"],
+            wall_s_per_rank=[run["wall_s"] for run in runs],
+            tokens_per_s=[prompts.shape[0] * new / run["wall_s"]
+                          for run in runs],
+            expert_cap=runs[0]["expert_cap"],
+            moe_gb_per_rank=[run["moe_bytes"] / 1e9 for run in runs],
+            decode_step_stats_rank0={k: v.tolist() for k, v in
+                                     runs[0]["decode_step_stats"].items()},
+            capture_refused=runs[0]["capture_refused"])
+        log(f"ep ranks {gcfg.name} {name}: {json.dumps(res_b[name])}")
+    # (c)
+    log("ep ranks: backend nccl, 1 rank")
+    t0 = time.perf_counter()
+    w1 = DIST.spawn(ep_rank_world1, 1, backend="nccl", device=dev,
+                    args=(layer_spec, serve_spec))[0]
+    world1_s = time.perf_counter() - t0
+    ok_layer = all(torch.equal(a, b) for a, b in zip(w1["layer_y"],
+                                                     layer_ref["world1"]))
+    ok_logits = torch.equal(w1["decode_logits"], world1_logits)
+    if not (ok_layer and ok_logits):
+        fail(f"ep ranks nccl world size 1: layer bit-equal "
+             f"{ok_layer}, decode logits bit-equal {ok_logits}")
+    res_c = dict(backend=w1["backend"], world_size=w1["world_size"],
+                 layer_bit_equal=ok_layer, decode_logits_bit_equal=ok_logits)
+    log(f"ep ranks world size 1: {json.dumps(res_c)}")
+    launches = {f"rank {r} layer": {"launches": {
+        n: sum(o["layer"][s][m]["launches"][n] for s in o["layer"]
+               for m in o["layer"][s]) for n in expect}}
+        for r, o in enumerate(outs)}
+    for r, o in enumerate(outs):
+        for name in pols:
+            launches[f"rank {r} serve {name}"] = {
+                "launches": o["serve"][name]["launches"]}
+    return dict(layer=res_a, serve=res_b, world1=res_c, launches=launches,
+                prep_s=prep_s, ranks_s=ranks_s, world1_s=world1_s,
+                card=gpu_name_power())
+
+
 # -------------------------------------------------------- graph phase ---
 
 SPEC_OPS = ("remaining", "budget", "draft_len", "spec_on", "priors")
@@ -4886,6 +5427,12 @@ def main() -> int:
         ep[f"{DS} layer"] = ep_layer_phase(ARCHS[DS])
         results[f"{DS} ep layer"] = {
             "layer calls": {"launches": ep[f"{DS} layer"]["launches"]}}
+        torch.cuda.empty_cache()
+    # one process per shard: ranks over gloo on the one card, NCCL at
+    # world size 1
+    with Phase("ep ranks"), torch.no_grad():
+        ep["ranks"] = ep_ranks_phase(ARCHS[DS], cfg)
+        results[f"{DS} ep ranks"] = ep["ranks"]["launches"]
         torch.cuda.empty_cache()
     # the paper's evaluation model at its own widths, 8 of its 36 layers
     paper = {}

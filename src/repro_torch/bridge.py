@@ -52,6 +52,16 @@ def _is_bf16(arr: np.ndarray) -> bool:
     return str(arr.dtype) == "bfloat16"
 
 
+def _host_tensor(arr, want_bf16: bool = False) -> torch.Tensor:
+    """One numpy leaf as a CPU tensor; a bfloat16 leaf stays bf16."""
+    arr = np.asarray(arr)
+    want_bf16 = want_bf16 or _is_bf16(arr)
+    if _is_bf16(arr):
+        arr = arr.astype(np.float32)
+    t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(torch.bfloat16) if want_bf16 else t
+
+
 def from_numpy(tree: Mapping, *, dtypes: Optional[Mapping[str, str]] = None,
                device: DeviceLike = None) -> Dict:
     """Nested dict of numpy arrays -> nested dict of torch tensors.
@@ -62,17 +72,9 @@ def from_numpy(tree: Mapping, *, dtypes: Optional[Mapping[str, str]] = None,
     back to bf16.
     """
     dev = resolve_device(device)
-    flat = {}
-    for key, arr in flatten(tree).items():
-        arr = np.asarray(arr)
-        want_bf16 = _is_bf16(arr) or (dtypes or {}).get(key) == "bfloat16"
-        if _is_bf16(arr):
-            arr = arr.astype(np.float32)
-        t = torch.from_numpy(np.array(arr, copy=True))
-        if want_bf16:
-            t = t.to(torch.bfloat16)
-        flat[key] = t.to(dev)
-    return unflatten(flat)
+    return unflatten({
+        key: _host_tensor(arr, (dtypes or {}).get(key) == "bfloat16").to(dev)
+        for key, arr in flatten(tree).items()})
 
 
 def to_numpy(params: Mapping) -> Dict:
@@ -91,6 +93,62 @@ def dtypes_of(params: Mapping) -> Dict[str, str]:
     """{path: dtype name} in the JAX checkpoint sidecar's spelling."""
     return {k: str(t.dtype).replace("torch.", "")
             for k, t in flatten(params).items()}
+
+
+# ------------------------------------------------------- expert shards ---
+
+EXPERT_LEAVES = ("w1", "w3", "w2")     # of a "moe" node: (..., E, ·, ·)
+
+
+def is_expert_leaf(key: str) -> bool:
+    """A routed experts' weight stack: ``layers/moe/w1`` and the like."""
+    parts = key.split("/")
+    return len(parts) >= 2 and parts[-2] == "moe" and \
+        parts[-1] in EXPERT_LEAVES
+
+
+def cut_experts(params: Mapping, local_eids, *, device: DeviceLike = None,
+                into: Optional[Mapping] = None) -> Dict:
+    """One expert-parallel rank's parameters: every routed experts' leaf
+    (``is_expert_leaf``) cut to the experts ``local_eids`` (a rank's row
+    of ``Placement.local_eids``) along its expert axis (-3), -1 padding
+    reading expert 0 as the JAX executor's clipped gather does; every
+    other leaf whole. ``params`` is the full tree on the host or on a
+    device, numpy (the JAX package's, bf16 kept) or torch; the result
+    lies on ``device``, the card unless the caller names another.
+
+    ``into``: a rank's tree whose expert leaves have the cut's shapes
+    (the same expert_cap): the new cut is copied into them in place, so
+    whatever holds their addresses reads the new experts, and ``into``
+    is returned. A placement update calls it with the host copy."""
+    dev = resolve_device(device)
+    eids = np.asarray(local_eids, np.int64)
+    out = {}
+    for key, leaf in flatten(params).items():
+        if not is_expert_leaf(key):
+            if into is None:
+                out[key] = leaf.to(dev) if isinstance(leaf, torch.Tensor) \
+                    else _host_tensor(leaf).to(dev)
+            continue
+        E = leaf.shape[-3]
+        sel = np.clip(eids, 0, E - 1)
+        if isinstance(leaf, torch.Tensor):
+            cut = leaf.index_select(-3, torch.as_tensor(sel,
+                                                        device=leaf.device))
+        else:
+            cut = _host_tensor(np.take(np.asarray(leaf), sel, axis=-3))
+        out[key] = cut.to(dev)
+    if into is None:
+        return unflatten(out)
+    dst = flatten(into)
+    for key, cut in out.items():
+        if dst[key].shape != cut.shape:
+            raise ValueError(
+                f"cut_experts(into=): {key} holds {tuple(dst[key].shape)}, "
+                f"the cut is {tuple(cut.shape)} (another expert_cap: build "
+                f"the rank's tree anew)")
+        dst[key].copy_(cut)
+    return into
 
 
 # ----------------------------------------------------------------- init ---

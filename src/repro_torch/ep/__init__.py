@@ -1,28 +1,35 @@
 """Expert-parallel execution: histogram-driven placement with hot-expert
-replication (placement.py) and the EP executor (executor.py), whose S
-shards run in one process on one device, batched over a shard axis, with
-the all-to-all a permutation of per-shard buffers and one grouped_ffn
-launch per layer call.
+replication (placement.py) and the EP executors (executor.py):
+``EPExecutor``, whose S shards run in one process on one device, batched
+over a shard axis, with the all-to-all a permutation of per-shard
+buffers and one grouped_ffn launch per layer call; and
+``DistEPExecutor``, one process per shard (``spawn``, ep/dist.py), each with
+only its own experts' weights, rows exchanged by
+``torch.distributed.all_to_all_single``.
 
-``ep_context`` binds an EPExecutor for model code: ``expert_ffn``'s
-``dispatch="ep"`` mode routes through the bound executor, and falls back
-to the bit-identical single-device sorted path when none is bound.
+``ep_context`` binds an executor for model code: ``expert_ffn``'s
+``dispatch="ep"`` mode routes through the bound executor, handing it the
+layer's expert stacks (a rank's own, under a DistEPExecutor), and is the
+bit-identical single-device sorted path when none is bound.
 """
 from __future__ import annotations
 
 import contextlib
 
-from repro_torch.ep.executor import EPExecutor, EPStats, exchange_counts
+from repro_torch.ep.dist import Rank, spawn
+from repro_torch.ep.executor import (DistEPExecutor, EPExecutor, EPStats,
+                                     exchange_counts)
 from repro_torch.ep.placement import (Placement, contiguous_placement,
-                                      placement_peak, plan_placement,
-                                      rebalance)
+                                      even_cap, placement_peak,
+                                      plan_placement, rebalance)
 
 _STATE = {"executor": None}
 
 
 @contextlib.contextmanager
 def ep_context(executor: EPExecutor):
-    """Bind an EPExecutor for ``expert_ffn(dispatch="ep")`` callers."""
+    """Bind an EPExecutor (or a DistEPExecutor) for
+    ``expert_ffn(dispatch="ep")`` callers."""
     old = _STATE["executor"]
     _STATE["executor"] = executor
     try:
@@ -46,7 +53,8 @@ def binding_key(dispatch: str):
 
 
 __all__ = [
-    "EPExecutor", "EPStats", "Placement", "binding_key",
-    "contiguous_placement", "current_executor", "ep_context",
-    "exchange_counts", "placement_peak", "plan_placement", "rebalance",
+    "DistEPExecutor", "EPExecutor", "EPStats", "Placement", "Rank",
+    "binding_key", "contiguous_placement", "current_executor",
+    "ep_context", "even_cap", "exchange_counts", "placement_peak",
+    "plan_placement", "rebalance", "spawn",
 ]

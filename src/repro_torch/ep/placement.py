@@ -105,9 +105,24 @@ def contiguous_placement(num_experts: int, num_shards: int) -> Placement:
     return _tables(host_sets, num_experts, num_shards, version=0)
 
 
+def _replicas(num_shards: int, max_replicas: Optional[int]) -> int:
+    S = num_shards
+    return S if max_replicas is None else max(1, min(max_replicas, S))
+
+
+def even_cap(num_experts: int, num_shards: int, *, replicate_hot: int = 0,
+             max_replicas: Optional[int] = None) -> int:
+    """Experts per shard when the E experts and the hot ones' extra
+    replicas are spread evenly: ceil((E + hot·(replicas − 1)) / S)."""
+    hot = min(replicate_hot, num_experts) if replicate_hot > 0 else 0
+    slots = num_experts + hot * (_replicas(num_shards, max_replicas) - 1)
+    return max(1, -(-slots // num_shards))
+
+
 def plan_placement(load: np.ndarray, num_shards: int, *,
                    replicate_hot: int = 0,
                    max_replicas: Optional[int] = None,
+                   max_per_shard: Optional[int] = None,
                    version: int = 0) -> Placement:
     """Assign experts to shards minimizing predicted peak load.
 
@@ -117,13 +132,26 @@ def plan_placement(load: np.ndarray, num_shards: int, *,
     ``max_replicas`` shards (default: all of them), splitting their
     rows ~evenly across replicas.
 
+    max_per_shard: the most experts a shard may hold (its weight
+    memory); a full shard takes no more. None leaves it unbounded, the
+    JAX package's planner, which puts every expert of load 0 on the one
+    least-loaded shard: from raw counts of a decode step (most experts
+    unrouted) that is nearly the whole layer on one shard. Below
+    ``even_cap`` it raises.
+
     Deterministic: ties in load break by expert id; ties in shard load
     break by shard id. Same inputs => identical placement on every host.
     """
     load = np.asarray(load, np.float64)
     E = load.shape[0]
     S = num_shards
-    r = S if max_replicas is None else max(1, min(max_replicas, S))
+    r = _replicas(S, max_replicas)
+    if max_per_shard is not None:
+        need = even_cap(E, S, replicate_hot=replicate_hot,
+                        max_replicas=max_replicas)
+        if max_per_shard < need:
+            raise ValueError(f"max_per_shard {max_per_shard}: {E} experts "
+                             f"and their replicas need {need} a shard")
     hot = set()
     if replicate_hot > 0 and E:
         # stable: by (-load, expert id)
@@ -133,20 +161,25 @@ def plan_placement(load: np.ndarray, num_shards: int, *,
     # load/r to each of its r hosts
     order = np.lexsort((np.arange(E), -load))
     shard_load = np.zeros(S, np.float64)
+    held = np.zeros(S, np.int64)
     host_sets = [None] * E
     for e in order:
         e = int(e)
+        # full shards sort last (none is full without max_per_shard)
+        free = shard_load if max_per_shard is None else \
+            np.where(held < max_per_shard, shard_load, np.inf)
         if e in hot:
             # replicas on the r least-loaded shards (ids break ties)
-            picks = np.lexsort((np.arange(S), shard_load))[:r]
+            picks = np.lexsort((np.arange(S), free))[:r]
             picks = sorted(int(s) for s in picks)
             for s in picks:
                 shard_load[s] += load[e] / len(picks)
             host_sets[e] = picks
         else:
-            s = int(np.lexsort((np.arange(S), shard_load))[0])
+            s = int(np.lexsort((np.arange(S), free))[0])
             shard_load[s] += load[e]
             host_sets[e] = [s]
+        held[host_sets[e]] += 1
     return _tables(host_sets, E, S, version=version)
 
 
@@ -166,6 +199,7 @@ def placement_peak(placement: Placement, load: np.ndarray) -> float:
 def rebalance(prev: Placement, load: np.ndarray, *,
               replicate_hot: int = 0,
               max_replicas: Optional[int] = None,
+              max_per_shard: Optional[int] = None,
               hysteresis: float = 0.1) -> Tuple[Placement, bool]:
     """Between-batch rebalancing with hysteresis.
 
@@ -178,6 +212,7 @@ def rebalance(prev: Placement, load: np.ndarray, *,
     cand = plan_placement(load, prev.num_shards,
                           replicate_hot=replicate_hot,
                           max_replicas=max_replicas,
+                          max_per_shard=max_per_shard,
                           version=prev.version + 1)
     p_prev = placement_peak(prev, load)
     p_cand = placement_peak(cand, load)

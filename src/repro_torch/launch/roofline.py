@@ -18,8 +18,11 @@ reference's figures; a one-card caller passes 1.
 
 Left out: ``collective_bytes``, ``collective_bytes_split`` and
 ``_shape_bytes``, which parse XLA HLO text; the port produces none. A
-caller puts its own collective bytes in the step record (the EP
-executor counts its exchange in ``EPStats.a2a_bytes``).
+caller puts its own collective bytes in the step record: an EP layer's
+are its ``EPStats.a2a_bytes``, the bytes of the rows each rank of a
+``DistEPExecutor`` routed to other ranks (``ep_collective_bytes``), or
+the bytes its exchange moves, blocks of M rows a peer padding included
+(``ep_padded_exchange_bytes``).
 """
 from __future__ import annotations
 
@@ -48,6 +51,26 @@ def roofline_terms(flops: float, bytes_accessed: float,
     dom = max(terms, key=lambda kv: kv[1])[0]
     return {"compute_s": t_c, "memory_s": t_m, "collective_s": t_x,
             "dominant": dom}
+
+
+def ep_collective_bytes(stats) -> int:
+    """The collective bytes of one EP layer call, for ``roofline_terms``:
+    the busiest rank's ``a2a_bytes`` (an ``EPStats``, or its (S,)
+    array), since each rank sends its own over its own links at once.
+    Over LINK_BW they bound the exchange's time on a host whose cards
+    are joined by NVLink (a bound, not a measurement)."""
+    a2a = getattr(stats, "a2a_bytes", stats)
+    return int(max(int(b) for b in a2a))
+
+
+def ep_padded_exchange_bytes(num_shards: int, max_rows: int, d: int,
+                             elem_bytes: int) -> int:
+    """The bytes one rank of a ``DistEPExecutor`` sends other ranks in
+    one layer call's exchange, which moves M = ``max_rows`` rows a peer
+    whether occupied or not: the (S,) int32 counts, the payload and its
+    int32 expert ids out, the output rows back (rows of d elements of
+    ``elem_bytes`` each way). The all_gather of y is not counted."""
+    return (num_shards - 1) * (4 + max_rows * (2 * d * elem_bytes + 4))
 
 
 # ------------------------------------------------------- model FLOPs ------

@@ -12,11 +12,13 @@ Expert compute goes through the ``dispatch`` switch of expert_ffn:
            case as flat GEMMs over all E experts; the kernel computes the
            same function reading only the selected experts' weights.
   auto   — dense for decode-sized drop-free batches, sorted otherwise.
-  ep     — expert-parallel execution through the EPExecutor bound by
+  ep     — expert-parallel execution through the executor bound by
            ``repro_torch.ep.ep_context`` (ep/executor.py): per-shard
            sort, row exchange, one grouped FFN over every shard's local
            experts, reverse exchange and combine. Bit-equal to "sorted";
-           with no executor bound it is "sorted".
+           with no executor bound it is "sorted". Under a DistEPExecutor
+           each rank's tree holds only its own experts
+           (``bridge.cut_experts``), which only this mode takes.
 """
 from __future__ import annotations
 
@@ -168,8 +170,14 @@ def expert_ffn(p: Dict, x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
         from repro_torch import ep as EP
         ex = EP.current_executor()
         if ex is not None:
+            # a DistEPExecutor's rank gets its own (cap, d, f) stacks
             return ex.ffn(x, p["w1"], p["w3"], p["w2"], idx, w).to(x.dtype)
         dispatch = "sorted"                   # the single-device path
+    if p["w1"].shape[0] != E:
+        raise ValueError(
+            f"expert_ffn(dispatch={dispatch!r}) needs the layer's {E} "
+            f"experts; it got stacks of {p['w1'].shape[0]} (a rank's own "
+            f"experts: serve them with dispatch='ep' under a DistEPExecutor)")
     G = 1
     if T > group_size:
         for cand in range(T // group_size, 0, -1):

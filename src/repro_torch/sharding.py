@@ -15,9 +15,11 @@ Left out:
   ``mesh_context`` also takes the batch axes and the tags of hints to
   drop, and ``batch_axes()`` reads the former back; they feed only
   ``constrain``, so they are left out with it.
-* ``get_shard_map`` and ``make_ep_mesh``: the expert-parallel executor
-  takes their place, ``ep.EPExecutor(num_shards, device=)``, which runs
-  the shards itself.
+* ``get_shard_map`` and ``make_ep_mesh``: their counterpart is
+  ``ep.spawn(fn, num_shards, backend=)`` (ep/dist.py), one process per
+  shard joined by ``torch.distributed``, with ``ep.DistEPExecutor`` as
+  the per-shard program; ``ep.EPExecutor(num_shards, device=)`` runs all
+  the shards in one process instead.
 """
 from __future__ import annotations
 

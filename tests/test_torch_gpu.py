@@ -1499,6 +1499,78 @@ def test_ep_ffn_captures_and_replays_new_tables(cuda):
     assert torch.equal(out, sorted_expert_ffn(*args))
 
 
+def _rank_calls(S, E, d, f, T, dtype):
+    """Host-side EP layer calls at top_k 1, 2 and 8, on the contiguous
+    and a replicated placement, and the full weights (CPU tensors)."""
+    from repro_torch import ep as EP
+    g = torch.Generator().manual_seed(S * 100 + d)
+    weights = [rand(g, sh, dtype, 0.05) for sh in ((E, d, f), (E, d, f),
+                                                   (E, f, d))]
+    load = np.arange(E, dtype=np.float64) ** 2
+    calls = []
+    for k in (1, 2, 8):
+        x, _, _, _, idx, w = _ep_case(g, "cpu", dtype, T, d, E, f, k)
+        for tag, pl in (("contig", EP.contiguous_placement(E, S)),
+                        ("rep", EP.plan_placement(load, S, replicate_hot=2,
+                                                  max_replicas=min(S, 3)))):
+            calls.append((f"k{k}_{tag}", pl, x, idx, w, None))
+    return weights, calls
+
+
+def _check_rank_calls(outs, weights, calls, dev):
+    """Each rank's gathered y and EPStats equal the one-process
+    executor's and y the sorted dispatch's, bit for bit; grouped_ffn
+    launched once in each of the two layer calls."""
+    from repro_torch import ep as EP
+    from repro_torch.models.dispatch import sorted_expert_ffn
+    for name, pl, x, idx, w, _ in calls:
+        args = [t.to(dev) for t in (x, *weights, idx, w)]
+        y1, st1 = EP.EPExecutor(pl.num_shards, pl, device=dev)(*args)
+        ref = sorted_expert_ffn(*args).cpu()
+        for o in outs:
+            r = o["calls"][name]
+            assert torch.equal(r["y"], y1.cpu()) and torch.equal(r["y"], ref)
+            assert torch.equal(r["ffn"], ref)
+            assert r["launches"] == 2
+            assert r["held"][0][0] == pl.expert_cap
+            for fld in ("computed_rows", "tile_rows", "sent_rows",
+                        "a2a_bytes", "count_matrix"):
+                np.testing.assert_array_equal(getattr(r["stats"], fld),
+                                              getattr(st1, fld))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ep_ranks_over_gloo_on_one_card(cuda, dtype):
+    """Two processes over gloo on the one card, each holding only its
+    experts' stacks: bit-equal to the one-process executor and to sorted
+    dispatch, exact grouped_ffn launches per rank; a real CUDA graph
+    capture of the layer raises a clear error on every rank (no hang)."""
+    import torch_ep_ranks as RANKS
+    from repro_torch.ep import dist as DIST
+    weights, calls = _rank_calls(2, 16, 128, 64, 37, dtype)
+    _, pl, x, idx, w, _ = calls[2]
+    outs = DIST.spawn(RANKS.suite, 2, backend="gloo", args=(weights, calls),
+                      kwargs=dict(card_capture=(pl, x, idx, w)))
+    _check_rank_calls(outs, weights, calls, cuda)
+    for o in outs:
+        assert "CUDA graph" in o["card_capture"] and \
+            "gloo" in o["card_capture"]
+
+
+def test_ep_rank_over_nccl_world_size_one(cuda):
+    """NCCL at world size 1 (one rank, all experts): bit-equal to the
+    one-process executor at S 1 and to sorted dispatch; NCCL with more
+    ranks than cards raises before any process starts."""
+    import torch_ep_ranks as RANKS
+    from repro_torch.ep import dist as DIST
+    weights, calls = _rank_calls(1, 16, 128, 64, 37, torch.bfloat16)
+    outs = DIST.spawn(RANKS.suite, 1, backend="nccl", args=(weights, calls))
+    _check_rank_calls(outs, weights, calls, cuda)
+    with pytest.raises(ValueError, match="card per rank"):
+        DIST.spawn(RANKS.suite, torch.cuda.device_count() + 1,
+                   backend="nccl", args=(weights, calls))
+
+
 def test_ep_engine_on_the_card_equals_sorted(cuda):
     """A 2-layer Engine(dispatch="ep") (16 experts over 8 shards, the
     decode loop replayed from a graph) gives dispatch="sorted"'s tokens,
